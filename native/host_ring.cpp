@@ -1,8 +1,8 @@
-// afp_tpu native host runtime: bounded block ring buffers + real-time pacer.
+// afp native host runtime: bounded block ring buffers + real-time pacer.
 //
-// TPU-native equivalent of the reference's host-side streaming machinery
+// Native equivalent of the reference's host-side streaming machinery
 // (SURVEY.md §2.3/§2.4): PortAudio's callback/queue layer
-// (/root/reference/stream_process_EQ_GUI.py:47-48, 462-484) becomes a pair of
+// (reference/stream_process_EQ_GUI.py:47-48, 462-484) becomes a pair of
 // bounded ring buffers with the same backpressure semantics — put_nowait +
 // drop-on-full ("Output queue full, dropping frame",
 // stream_process_AGC.py:198-199) and timeout'd blocking gets

@@ -1,8 +1,8 @@
-"""AudioStream bridge tests against a mock sounddevice (VERDICT r1 #6).
+"""AudioStream bridge tests against a mock sounddevice.
 
 No PortAudio in CI: a fake `sd` module records the stream configuration and
 lets the test fire the real-time callback by hand, proving the bridge honors
-the reference's duplex contract (`/root/reference/stream_process.py:128-136`)
+the reference's duplex contract (`reference/stream_process.py:128-136`)
 and degrades cleanly when the backend is absent.
 """
 import types
@@ -10,8 +10,8 @@ import types
 import numpy as np
 import pytest
 
-from afp_tpu.engine import StreamConfig, StreamEngine
-from afp_tpu.runtime.audio import AudioStream, audio_available
+from afp.engine import StreamConfig, StreamEngine
+from afp.runtime.audio import AudioStream, audio_available
 
 
 class _FakeStream:
@@ -187,7 +187,7 @@ def test_callback_arbitrary_frames():
 
 
 def test_missing_backend_raises_cleanly(monkeypatch):
-    import afp_tpu.runtime.audio as audio
+    import afp.runtime.audio as audio
 
     monkeypatch.setattr(audio, "_sounddevice", lambda: None)
     assert audio.audio_available() is False

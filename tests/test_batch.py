@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from afp_tpu.engine import Pipeline, PipelineParams, StreamConfig
-from afp_tpu.engine.batch import broadcast_gains, with_per_stream_gains
+from afp.engine import Pipeline, PipelineParams, StreamConfig
+from afp.engine.batch import broadcast_gains, with_per_stream_gains
 
 
 def make(batch, **kw):
@@ -54,8 +54,7 @@ def test_broadcast_gains_shapes():
 
 
 def test_per_stream_on_td_matches_fft(rng):
-    """Per-stream gain banks on the MXU strategy ≡ the FFT strategy
-    (VERDICT r1 #8 — was a NotImplementedError in round 1)."""
+    """Per-stream gain banks on the MXU strategy ≡ the FFT strategy."""
     gains = np.array([
         [1.0] * 9,
         np.linspace(0.5, 2.0, 9),
@@ -73,20 +72,21 @@ def test_per_stream_on_td_matches_fft(rng):
 
 
 def test_per_stream_td_b3_meets_contract(rng):
-    """Per-stream MXU path in bf16×3 precision stays under −90 dB."""
+    """Per-stream gain-mixed kernels through the band-matrix product at its
+    bf16×3 algorithm stay under −90 dB vs the float64 oracle."""
     import jax.numpy as jnp
 
-    from afp_tpu.ops.pallas import fir_td_mxu_per_stream
+    from afp.ops.convolve import band_conv
 
     N, T, B, K = 65, 256, 4, 3
     kernels = (rng.normal(size=(K, N)) * 0.1).astype(np.float32)
     gains = rng.uniform(0.5, 2.0, size=(B, K)).astype(np.float32)
     x = (rng.normal(size=(B, T + N - 1)) * 0.5).astype(np.float32)
-    out = np.asarray(fir_td_mxu_per_stream(
-        jnp.asarray(x), jnp.asarray(kernels), jnp.asarray(gains),
-        interpret=True, precision="B3"))
     gold = np.zeros((B, T))
+    out = np.zeros((B, T))
     for b in range(B):
+        kb = gains[b] @ kernels
+        out[b] = np.asarray(band_conv(jnp.asarray(x[b]), jnp.asarray(kb)))
         for k in range(K):
             gold[b] += gains[b, k] * np.convolve(
                 x[b].astype(np.float64), kernels[k].astype(np.float64), "valid")
@@ -102,7 +102,7 @@ def test_per_stream_filter_banks_match_individual_runs(rng):
         dict(cutoff=15000.0, window_type="hann"),
         dict(cutoff=(500.0, 8000.0), filter_type="bandpass"),
     ]
-    from afp_tpu.engine.batch import with_per_stream_filters
+    from afp.engine.batch import with_per_stream_filters
 
     pipe, _ = make(batch=3, eq_enabled=False)
     bank = with_per_stream_filters(pipe, variants)
@@ -119,7 +119,7 @@ def test_per_stream_filter_banks_match_individual_runs(rng):
 
 
 def test_per_stream_filter_banks_unfused_path(rng):
-    from afp_tpu.engine.batch import with_per_stream_filters
+    from afp.engine.batch import with_per_stream_filters
 
     variants = [dict(cutoff=4000.0), dict(cutoff=12000.0)]
     pipe, _ = make(batch=2, eq_enabled=False, fuse_rate_conversion=False)
@@ -138,7 +138,7 @@ def test_per_stream_filter_banks_unfused_path(rng):
 
 
 def test_per_stream_filter_banks_guards():
-    from afp_tpu.engine.batch import with_per_stream_filters
+    from afp.engine.batch import with_per_stream_filters
 
     pipe, _ = make(batch=2, eq_enabled=False)
     with pytest.raises(ValueError, match="variants"):
@@ -148,11 +148,11 @@ def test_per_stream_filter_banks_guards():
     pipe_eq, _ = make(batch=2, eq_enabled=True)
     with pytest.raises(NotImplementedError, match="eq_enabled"):
         with_per_stream_filters(pipe_eq, [dict(), dict()])
-    # td_mxu is SUPPORTED since r4 (banked kernels) — uniform designs on a
-    # tiny batch build a 1-design bank instead of raising
+    # td_mxu configs take row-level banks too: the [B, F] response bank
+    # (the bank always runs the FFT pass)
     pipe_td, _ = make(batch=2, eq_enabled=False, conv_strategy="td_mxu")
     bank = with_per_stream_filters(pipe_td, [dict(), dict()])
-    assert bank.casc_bank.shape[0] == 1 and bank.casc_assign.shape == (1,)
+    assert bank.H_main.shape[0] == 2 and bank.per_stream()
 
 
 def test_per_stream_filter_banks_numtaps_bump_rejected():
@@ -160,7 +160,7 @@ def test_per_stream_filter_banks_numtaps_bump_rejected():
     Nyquist zero) — a per-variant bump changes the kernel length, which
     used to crash np.stack (mixed variants) or silently truncate the bank
     (all bumped).  Review fix: rejected with guidance."""
-    from afp_tpu.engine.batch import with_per_stream_filters
+    from afp.engine.batch import with_per_stream_filters
 
     pipe, _ = make(batch=2, eq_enabled=False, numtaps=64)
     with pytest.raises(ValueError, match="odd base numtaps"):
@@ -184,26 +184,11 @@ def test_per_stream_gains_require_eq():
         with_per_stream_gains(pipe, params, 2.0)
 
 
-def test_per_stream_td_rejects_untileable_batch(rng):
-    """Code-review r2 finding: a batch not divisible by the picked tile must
-    raise, not silently leave trailing streams unwritten."""
-    import jax.numpy as jnp
-
-    from afp_tpu.ops.pallas import fir_td_mxu_per_stream
-
-    kernels = rng.normal(size=(3, 33)).astype(np.float32) * 0.1
-    gains = np.ones((12, 3), dtype=np.float32)
-    x = rng.normal(size=(12, 256 + 32)).astype(np.float32)
-    with pytest.raises(ValueError, match="batch"):
-        fir_td_mxu_per_stream(jnp.asarray(x), jnp.asarray(kernels),
-                              jnp.asarray(gains), interpret=True)
-
-
-# ------- per-stream filter banks on td_mxu (banked kernels, VERDICT r3 #3) --
+# ------- per-stream filter banks under conv_strategy='td_mxu' --
 
 
 def _td_cfg(**kw):
-    from afp_tpu.engine import StreamConfig
+    from afp.engine import StreamConfig
 
     base = dict(
         samplerate=44100, blocksize=512, upsample_factor=2, numtaps=33,
@@ -221,13 +206,13 @@ def test_td_banked_matches_single_design_pipelines(rng):
     shared-kernel pipelines row-for-row (same seed, same state walk)."""
     import dataclasses
 
-    from afp_tpu.engine.batch import with_per_stream_filters
+    from afp.engine.batch import with_per_stream_filters
 
     cfg = _td_cfg()
     pipe = Pipeline(cfg)
     variants = [dict(cutoff=4000.0 if i < 8 else 12000.0) for i in range(16)]
     bank = with_per_stream_filters(pipe, variants)
-    assert bank.casc_bank.shape[0] == 2  # deduplicated designs
+    assert bank.H_main.shape[0] == 16  # one response row per stream
     blocks = (rng.normal(size=(3, 16, cfg.blocksize)) * 0.3
               ).astype(np.float32)
     st = pipe.init_state(seed=1)
@@ -247,13 +232,12 @@ def test_td_banked_matches_single_design_pipelines(rng):
 
 
 def test_td_banked_ring_and_mega_match_step(rng):
-    """The banked f32 serving ring matches the staged banked step within
-    the padded-band accumulation class (≤ −110 dB; the same bound as the
-    shared f32 ring vs staged step), and the megakernel matches the
-    per-step ring bitwise."""
+    """A per-stream filter bank through the serving ring matches the staged
+    step bitwise, per-step and in the one-dispatch scan (the ring runs the
+    step body on a ring slot; the old megakernel form is gone)."""
     import jax.numpy as jnp
 
-    from afp_tpu.engine.batch import with_per_stream_filters
+    from afp.engine.batch import with_per_stream_filters
 
     cfg = _td_cfg()
     pipe = Pipeline(cfg)
@@ -265,43 +249,28 @@ def test_td_banked_ring_and_mega_match_step(rng):
     st = pipe.init_state(seed=1)
     ref = []
     for b in blocks:
-        st, y = pipe.step(bank, st, b)
+        st, y = pipe._step_impl(bank, st, jnp.asarray(b))
         ref.append(np.asarray(y))
     ring = jnp.asarray(blocks)
     orng = jnp.zeros(blocks.shape, jnp.float32)
     st2 = pipe.init_state(seed=1)
     for i in range(2):
-        st2, orng = pipe._ring_step_impl(bank, st2, ring, None, i, orng)
-        np.testing.assert_allclose(np.asarray(orng)[i], ref[i], atol=1e-6)
-    st3 = pipe.init_state(seed=1)
+        st2, orng = pipe._ring_step_impl(bank, st2, ring, i, orng)
+        np.testing.assert_array_equal(np.asarray(orng)[i], ref[i])
     om = jnp.zeros(blocks.shape, jnp.float32)
-    st3, om = pipe._run_ring_mega_impl(bank, st3, ring, None, om, 2, 0)
+    _, om = pipe.run_ring(bank, pipe.init_state(seed=1), ring, om, 2)
     np.testing.assert_array_equal(np.asarray(om), np.asarray(orng))
 
 
 def test_td_banked_guards(rng):
-    """Granularity, ingest, and fold guards for the td banked mode."""
-    from afp_tpu.engine.batch import with_per_stream_filters
+    """Row-level banks need no tiling: 16 distinct designs in 16 rows are
+    accepted, and the offline fold ('prefer') agrees with the scan."""
+    from afp.engine.batch import with_per_stream_filters
 
     pipe = Pipeline(_td_cfg())
-    # row-level designs cannot tile (16 distinct designs in 16 rows)
-    with pytest.raises(ValueError, match="constant within aligned"):
-        with_per_stream_filters(
-            pipe, [dict(cutoff=1000.0 + 500 * i) for i in range(16)])
-    # an explicit bt must sit on the ladder, divide the batch, and hold
-    # the assignment constant
-    with pytest.raises(ValueError, match="ladder tile"):
-        with_per_stream_filters(pipe, [dict(cutoff=4000.0)] * 16, bt=12)
-    with pytest.raises(ValueError, match="not constant"):
-        with_per_stream_filters(
-            pipe, [dict(cutoff=4000.0 if i < 8 else 12000.0)
-                   for i in range(16)], bt=16)
-    # fold=True is refused; 'prefer' silently keeps the scan
     bank = with_per_stream_filters(
-        pipe, [dict(cutoff=4000.0 if i < 8 else 12000.0) for i in range(16)])
+        pipe, [dict(cutoff=1000.0 + 500 * i) for i in range(16)])
     sig = (rng.normal(size=(16, 2 * 512)) * 0.3).astype(np.float32)
-    with pytest.raises(ValueError, match="per-stream filter banks"):
-        pipe.process_signal(bank, pipe.init_state(seed=0), sig, fold=True)
     _, y = pipe.process_signal(bank, pipe.init_state(seed=1), sig,
                                fold="prefer")
     st = pipe.init_state(seed=1)
@@ -309,15 +278,14 @@ def test_td_banked_guards(rng):
     for i in range(2):
         st, o = pipe.step(bank, st, sig[:, i * 512:(i + 1) * 512])
         ref.append(np.asarray(o))
-    np.testing.assert_array_equal(np.asarray(y),
-                                  np.concatenate(ref, axis=-1))
+    np.testing.assert_allclose(np.asarray(y), np.concatenate(ref, axis=-1),
+                               atol=1e-6)
 
 
 def test_td_banked_with_dither_and_clip(rng):
-    """The banked kernel's fused clip epilogue runs in interpret mode
-    (clip has no PRNG); dither-on configs stay deterministic per seed and
-    within the clip bound."""
-    from afp_tpu.engine.batch import with_per_stream_filters
+    """A per-stream filter bank with clip and dither: deterministic per
+    seed and within the clip bound."""
+    from afp.engine.batch import with_per_stream_filters
 
     cfg = _td_cfg(dither_kind="tpdf", output_clip=0.5)
     pipe = Pipeline(cfg)
@@ -332,35 +300,12 @@ def test_td_banked_with_dither_and_clip(rng):
     assert np.max(np.abs(y1)) <= 0.5 + lsb
 
 
-def test_td_banked_default_tile_is_shardable(rng):
-    """The default assignment tile caps at max(8, B//8): a bank built with
-    UNIFORM designs at global batch still shards (the largest-tile pick
-    used to produce a 1-entry casc_assign that no mesh could split —
-    r4 review finding)."""
-    import jax
-
-    from afp_tpu.engine.batch import with_per_stream_filters
-    from afp_tpu.parallel import ShardedPipeline, make_mesh
-
-    cfg = _td_cfg()
-    pipe = Pipeline(cfg)
-    bank = with_per_stream_filters(pipe, [dict(cutoff=5000.0)] * 16)
-    assert bank.casc_assign.shape[0] >= 2  # ≥2 tiles at batch 16
-    blocks = (rng.normal(size=(16, cfg.blocksize)) * 0.3).astype(np.float32)
-    _, gold = pipe.step(bank, pipe.init_state(seed=1), blocks)
-    sp = ShardedPipeline(cfg, make_mesh(2, axis_names=("streams",)))
-    _, out = sp.step(bank, sp.init_state(seed=1), blocks)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(gold), atol=1e-6)
-
-
 def test_td_banked_pcm16(rng):
-    """pcm16 ingest through the banked path: the staged step reconstructs
-    the f32 window from the split int16 (EXACT — 16-bit data splits
-    losslessly) and the raw int16 serving ring feeds the banked kernel
-    natively; both match the f32 banked pipeline fed n/32768 floats."""
+    """pcm16 ingest with a per-stream filter bank: staged steps and the raw
+    int16 serving ring both match the f32 pipeline fed n/32768 floats."""
     import jax.numpy as jnp
 
-    from afp_tpu.engine.batch import with_per_stream_filters
+    from afp.engine.batch import with_per_stream_filters
 
     variants = [dict(cutoff=4000.0 if i < 8 else 12000.0) for i in range(16)]
     cfg16 = _td_cfg(ingest="pcm16")
@@ -385,7 +330,7 @@ def test_td_banked_pcm16(rng):
     orng = jnp.zeros(qi.shape, jnp.float32)
     st3 = p16.init_state(seed=2)
     for i in range(2):
-        st3, orng = p16._ring_step_impl(bank16, st3, ring, None, i, orng)
+        st3, orng = p16._ring_step_impl(bank16, st3, ring, i, orng)
     st16b = p16.init_state(seed=2)
     for i in range(2):
         st16b, yref = p16.step(bank16, st16b, qi[i])
@@ -394,13 +339,11 @@ def test_td_banked_pcm16(rng):
 
 
 def test_td_banked_with_agc(rng):
-    """Banked filters compose with the AGC stage on the STAGED step (the
-    AGC pair-emit is gated off under banked params, so the conv consumes
-    the gain-applied f32 block); the serving ring refuses the combination
-    loudly (its AGC chain consumes the shared band)."""
+    """Per-stream filter banks compose with the AGC stage, staged and on
+    the serving ring."""
     import jax.numpy as jnp
 
-    from afp_tpu.engine.batch import with_per_stream_filters
+    from afp.engine.batch import with_per_stream_filters
 
     variants = [dict(cutoff=4000.0 if i < 8 else 12000.0) for i in range(16)]
     cfg = _td_cfg(agc_enabled=True, agc_window_size=128, output_clip=0.99)
@@ -420,133 +363,19 @@ def test_td_banked_with_agc(rng):
         _, g = p2.step(pp2, p2.init_state(seed=1), x)
         np.testing.assert_allclose(y[rows], np.asarray(g)[rows], atol=1e-6)
 
-    # the AGC serving-ring chain rejects banked params at call time
-    # (force the fused chain on — off-TPU it is gated off and the ring
-    # form is unsupported before the banked check is even reached)
-    import os
-
-    os.environ["AFP_AGC_FUSED_FORCE"] = "1"
-    try:
-        # the fused AGC ring chain tiles at ≥ 8·128 streams — build the
-        # refusal case at batch 1024 (the raise precedes any kernel work)
-        cfgr = _td_cfg(agc_enabled=True, agc_window_size=256,
-                       output_clip=0.99, batch=1024)
-        pf = Pipeline(cfgr)
-        assert pf.supports_ring_step
-        bankr = with_per_stream_filters(
-            pf, [dict(cutoff=4000.0 if i < 512 else 12000.0)
-                 for i in range(1024)])
-        ring = jnp.zeros((1, 1024, cfgr.blocksize), jnp.float32)
-        out = jnp.zeros((1, 1024, cfgr.blocksize), jnp.float32)
-        with pytest.raises(ValueError, match="per-stream filter banks"):
-            pf._ring_step_impl(bankr, pf.init_state(seed=1), ring, None, 0,
-                               out)
-    finally:
-        del os.environ["AFP_AGC_FUSED_FORCE"]
+    # the serving ring takes the combination: ring == staged, bitwise
+    ring = jnp.asarray(x[None])
+    out = jnp.zeros((1, 16, cfg.blocksize), jnp.float32)
+    _, out = pipe._ring_step_impl(bank, pipe.init_state(seed=1), ring, 0,
+                                  out)
+    np.testing.assert_array_equal(np.asarray(out)[0], y)
 
 
-# ------- stream→tile design packing (VERDICT r4 #4) --
-
-
-def test_design_sort_perm_link_groups():
-    """Whole agc_link_group blocks move together; mixed-design groups are
-    rejected."""
-    from afp_tpu.engine.batch import _design_sort_perm
-
-    assign = np.array([1, 1, 0, 0, 1, 1, 0, 0], dtype=np.int32)
-    perm = _design_sort_perm(assign, link=2)
-    np.testing.assert_array_equal(assign[perm],
-                                  np.array([0, 0, 0, 0, 1, 1, 1, 1]))
-    # pairs stay adjacent and intact
-    np.testing.assert_array_equal(perm, np.array([2, 3, 6, 7, 0, 1, 4, 5]))
-    with pytest.raises(ValueError, match="agc_link_group"):
-        _design_sort_perm(np.array([0, 1, 0, 1], dtype=np.int32), link=2)
-
-
-def test_td_banked_packed_interleaved(rng):
-    """pack=True (VERDICT r4 #4): a strictly INTERLEAVED design ordering —
-    un-tileable as given — serves through the banked MXU kernels via the
-    stream→tile permutation, with unpacked outputs row-for-row equal to
-    per-design shared-kernel pipelines."""
-    import dataclasses
-
-    from afp_tpu.engine.batch import with_per_stream_filters
-
-    cfg = _td_cfg()
-    pipe = Pipeline(cfg)
-    cuts = [4000.0, 12000.0]
-    variants = [dict(cutoff=cuts[i % 2]) for i in range(16)]
-    # the raw ordering is rejected (this is exactly what pack lifts)
-    with pytest.raises(ValueError, match="constant within aligned"):
-        with_per_stream_filters(pipe, variants)
-    bank, pk = with_per_stream_filters(pipe, variants, pack=True)
-    assert not pk.identity and bank.casc_bank.shape[0] == 2
-    # pack/unpack round-trips the caller order
-    probe = np.arange(16 * 4, dtype=np.float32).reshape(16, 4)
-    np.testing.assert_array_equal(pk.unpack(pk.pack(probe)), probe)
-
-    blocks = (rng.normal(size=(3, 16, cfg.blocksize)) * 0.3
-              ).astype(np.float32)
-    st = pipe.init_state(seed=1)
-    out = []
-    for b in blocks:
-        st, y = pipe.step(bank, st, pk.pack(b))
-        out.append(pk.unpack(np.asarray(y)))
-    for ci, cut in enumerate(cuts):
-        rows = [i for i in range(16) if i % 2 == ci]
-        p2 = Pipeline(dataclasses.replace(cfg, cutoff=cut))
-        pp2 = p2.device_params(PipelineParams.design(p2.cfg))
-        st2 = p2.init_state(seed=1)
-        for i, b in enumerate(blocks):
-            st2, g = p2.step(pp2, st2, b)
-            np.testing.assert_allclose(out[i][rows], np.asarray(g)[rows],
-                                       atol=1e-6)
-
-
-def test_ring_server_packed_banked(rng):
-    """RingServer(packing=...): interleaved per-stream designs serve on
-    the banked f32 conv ring with caller order preserved end-to-end —
-    outputs match the staged banked step with manual pack/unpack."""
-    from afp_tpu.engine.batch import with_per_stream_filters
-    from afp_tpu.runtime import RingServer
-
-    cfg = _td_cfg()
-    pipe = Pipeline(cfg)
-    assert pipe.supports_ring_step
-    variants = [dict(cutoff=4000.0 if i % 2 == 0 else 12000.0)
-                for i in range(16)]
-    bank, pk = with_per_stream_filters(pipe, variants, pack=True)
-    blocks = (rng.normal(size=(5, 16, cfg.blocksize)) * 0.3
-              ).astype(np.float32)
-    st = pipe.init_state(seed=2)
-    gold = []
-    for b in blocks:
-        st, y = pipe.step(bank, st, pk.pack(b))
-        gold.append(pk.unpack(np.asarray(y)))
-    srv = RingServer(pipe, bank, slots=8, chunk=2, max_inflight=2, seed=2,
-                     packing=pk)
-    outs = list(srv.stream(iter(blocks)))
-    assert len(outs) == 5
-    for i in range(5):
-        np.testing.assert_allclose(outs[i], gold[i], atol=1e-6)
-
-
-def test_packed_fft_identity(rng):
-    """pack=True on the fft strategy returns an identity packing (row-level
-    banks never need sorting)."""
-    from afp_tpu.engine.batch import with_per_stream_filters
-
-    pipe = Pipeline(_td_cfg(conv_strategy="fft"))
-    bank, pk = with_per_stream_filters(
-        pipe, [dict(cutoff=1000.0 + 500 * i) for i in range(16)], pack=True)
-    assert pk.identity and bank.H_main.shape[0] == 16
-
-
-# ------- per-stream AGC parameter banks (VERDICT r4 #6) --
+# ------- per-stream AGC parameter banks --
 
 
 def _agc_vec_cfg(mode="exact"):
-    from afp_tpu.engine import StreamConfig
+    from afp.engine import StreamConfig
 
     return StreamConfig(
         samplerate=44100, blocksize=256, upsample_factor=1, numtaps=33,
@@ -560,7 +389,7 @@ _AGC_POLICIES = (dict(target=0.1, mg=10.0, att=0.01, rel=0.1),
 
 
 def _agc_vec_params(pipe):
-    from afp_tpu.engine.batch import with_per_stream_agc
+    from afp.engine.batch import with_per_stream_agc
 
     B = pipe.batch
     h = B // 2
@@ -575,26 +404,37 @@ def _agc_vec_params(pipe):
         attack=halves("att"), release=halves("rel"))
 
 
+def _use_agc_kernel(monkeypatch, pipe):
+    """Route `pipe`'s AGC recurrence through the Triton kernel in interpret
+    mode — the engine path the GPU takes, testable on the CPU."""
+    import afp.ops.pallas.agc_scan as agc_scan
+
+    orig = agc_scan.smooth_gain_pallas
+    monkeypatch.setattr(agc_scan, "smooth_gain_pallas",
+                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+    pipe._agc_kernel = True
+
+
 @pytest.mark.slow
-@pytest.mark.parametrize("mode,force", [
+@pytest.mark.parametrize("mode,kernel", [
     ("exact", True), ("fast", True), ("exact", False), ("parallel", False)])
-def test_per_stream_agc_matches_scalar_runs(rng, mode, force, monkeypatch):
+def test_per_stream_agc_matches_scalar_runs(rng, mode, kernel, monkeypatch):
     """[B]-vector AGC policy banks ≡ N scalar-policy runs, row for row —
-    on the fused TPU chain (forced interpret) and the XLA fallbacks,
-    across exact/fast/parallel modes."""
+    through the recurrence kernel (interpret mode) and the plain JAX
+    forms, across exact/fast/parallel modes."""
     import dataclasses
 
-    if force:
-        monkeypatch.setenv("AFP_AGC_FUSED_FORCE", "1")
     cfg = _agc_vec_cfg(mode)
     pipe = Pipeline(cfg)
+    if kernel:
+        _use_agc_kernel(monkeypatch, pipe)
     vparams = _agc_vec_params(pipe)
     blocks = (rng.normal(size=(3, cfg.batch, cfg.blocksize)) * 0.1
               ).astype(np.float32)
     st = pipe.init_state(seed=3)
     out = []
     for b in blocks:
-        st, y = pipe.step(vparams, st, b)
+        st, y = pipe._step_impl(vparams, st, b)
         out.append(np.asarray(y))
 
     h = cfg.batch // 2
@@ -604,30 +444,24 @@ def test_per_stream_agc_matches_scalar_runs(rng, mode, force, monkeypatch):
             cfg, agc_target_level=pol["target"], agc_max_gain=pol["mg"],
             agc_attack=pol["att"], agc_release=pol["rel"]).validate()
         p2 = Pipeline(cfg_k)
+        if kernel:
+            p2._agc_kernel = True
         pp2 = p2.device_params(PipelineParams.design(p2.cfg))
         st2 = p2.init_state(seed=3)
         for i, b in enumerate(blocks):
-            st2, g = p2.step(pp2, st2, b)
-            if mode == "fast":
-                # the chunk-mean reduction order shifts under tensor-vs-
-                # scalar clip operands (~5e-6 through the gain) — the
-                # documented f32-reassociation class of the approximation
-                # mode; exact/parallel stay bit-identical
-                np.testing.assert_allclose(out[i][rows],
-                                           np.asarray(g)[rows], atol=2e-5)
-            else:
-                np.testing.assert_array_equal(out[i][rows],
-                                              np.asarray(g)[rows])
+            st2, g = p2._step_impl(pp2, st2, b)
+            # vector vs scalar operands may change float32 contraction
+            np.testing.assert_allclose(out[i][rows], np.asarray(g)[rows],
+                                       atol=2e-5)
 
 
 @pytest.mark.slow
 @pytest.mark.parametrize("mode", ["exact", "fast"])
 def test_per_stream_agc_ring_matches_step(rng, mode, monkeypatch):
-    """Vector AGC params through the serving-ring chain ≡ the staged fused
-    step, bit-exact (same kernels, slot-select BlockSpec only)."""
+    """Vector AGC params through the serving ring ≡ the staged step,
+    bit-exact (the ring runs the step body on a ring slot)."""
     import jax.numpy as jnp
 
-    monkeypatch.setenv("AFP_AGC_FUSED_FORCE", "1")
     cfg = _agc_vec_cfg(mode)
     pipe = Pipeline(cfg)
     assert pipe.supports_ring_step
@@ -637,20 +471,20 @@ def test_per_stream_agc_ring_matches_step(rng, mode, monkeypatch):
     st = pipe.init_state(seed=4)
     ref = []
     for b in blocks:
-        st, y = pipe.step(vparams, st, b)
+        st, y = pipe._step_impl(vparams, st, jnp.asarray(b))
         ref.append(np.asarray(y))
     ring = jnp.asarray(blocks)
     orng = jnp.zeros(blocks.shape, jnp.float32)
     st2 = pipe.init_state(seed=4)
     for i in range(3):
-        st2, orng = pipe._ring_step_impl(vparams, st2, ring, None, i, orng)
+        st2, orng = pipe._ring_step_impl(vparams, st2, ring, i, orng)
         np.testing.assert_array_equal(np.asarray(orng)[i], ref[i])
     np.testing.assert_array_equal(np.asarray(st.agc_gain),
                                   np.asarray(st2.agc_gain))
 
 
 def test_per_stream_agc_validation():
-    from afp_tpu.engine.batch import with_per_stream_agc
+    from afp.engine.batch import with_per_stream_agc
 
     pipe = Pipeline(_td_cfg())  # agc disabled
     pp = pipe.device_params(PipelineParams.design(pipe.cfg))
@@ -663,46 +497,3 @@ def test_per_stream_agc_validation():
     # scalar knobs stay scalars (no silent promotion)
     out = with_per_stream_agc(p2, pp2, target_level=0.25, attack=0.02)
     assert out.agc_target.ndim == 0 and out.agc_a_att.ndim == 0
-
-
-def test_td_banked_ring_resident_bank_matches(rng, monkeypatch):
-    """The resident-bank banked ring form (whole [D, rows, LANE] stack
-    fetched once per launch, in-kernel design select — the r5 fix for the
-    per-step banked ring's per-tile band re-DMA) is bit-identical to the
-    per-tile-selection form, on both the f32 and pcm16 rings."""
-    import jax.numpy as jnp
-
-    from afp_tpu.engine.batch import with_per_stream_filters
-
-    cfg = _td_cfg()
-    variants = [dict(cutoff=4000.0 if i < 8 else 12000.0) for i in range(16)]
-    blocks = (rng.normal(size=(2, 16, cfg.blocksize)) * 0.3
-              ).astype(np.float32)
-    outs = {}
-    for mode in ("0", "1"):
-        monkeypatch.setenv("AFP_BANKED_RESIDENT", mode)
-        pipe = Pipeline(cfg)
-        bank = with_per_stream_filters(pipe, variants)
-        ring = jnp.asarray(blocks)
-        orng = jnp.zeros(blocks.shape, jnp.float32)
-        st = pipe.init_state(seed=1)
-        for i in range(2):
-            st, orng = pipe._ring_step_impl(bank, st, ring, None, i, orng)
-        outs[mode] = np.asarray(orng)
-    np.testing.assert_array_equal(outs["0"], outs["1"])
-
-    icfg = _td_cfg(ingest="pcm16")
-    iblocks = np.clip(np.round(blocks * 32768.0), -32768, 32767
-                      ).astype(np.int16)
-    iouts = {}
-    for mode in ("0", "1"):
-        monkeypatch.setenv("AFP_BANKED_RESIDENT", mode)
-        pipe = Pipeline(icfg)
-        bank = with_per_stream_filters(pipe, variants)
-        ring = jnp.asarray(iblocks)
-        orng = jnp.zeros(blocks.shape, jnp.float32)
-        st = pipe.init_state(seed=1)
-        for i in range(2):
-            st, orng = pipe._ring_step_impl(bank, st, ring, None, i, orng)
-        iouts[mode] = np.asarray(orng)
-    np.testing.assert_array_equal(iouts["0"], iouts["1"])

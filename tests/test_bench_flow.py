@@ -2,18 +2,14 @@
 
 The timed legs are stubbed out (each returns a recognizable constant) so
 these tests validate the MEASUREMENT WIRING — which legs run, which keys
-they publish, and that a later leg's failure never discards an earlier
-leg's measurement — without needing TPU hardware.  The wiring is what the
-driver's round-end bench run depends on; it used to be four verbatim
-copies that had silently diverged (one clobbered its own measured value
-on a later-leg failure) before `_ring_leg_suite` unified them.
+they publish, and that a failing leg fails the run — without a GPU.
 """
 import os
 import sys
 
 import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import bench  # noqa: E402
 
 
@@ -24,131 +20,91 @@ def flow_env(monkeypatch):
     monkeypatch.setenv("AFP_BENCH_SUSTAIN", "4")
     monkeypatch.setenv("AFP_BENCH_SUSTAIN_ASYMPTOTE", "8")
     monkeypatch.setenv("AFP_BENCH_CHAIN", "1")
-    import afp_tpu.ops.pallas.fir_td as fir_td
-
-    # run_config mutates both of these; register them for restore so the
-    # precision mode never leaks into the rest of the suite
-    monkeypatch.setenv("AFP_TD_PRECISION",
-                       os.environ.get("AFP_TD_PRECISION", "B3"))
-    monkeypatch.setattr(fir_td, "PRECISION_MODE", fir_td.PRECISION_MODE)
+    monkeypatch.setattr(bench, "_peaks", lambda kind=None: bench._PEAKS[
+        "NVIDIA H100 80GB HBM3"])
     monkeypatch.setattr(bench, "_time_runs",
                         lambda *a, **k: (0.001, None))
     monkeypatch.setattr(bench, "_sustained_xrt",
                         lambda *a, **k: 100000.0)
     monkeypatch.setattr(
         bench, "_sustained_ring_xrt",
-        lambda pipe, params, blocks, reps, n_sust=None:
-        200000.0 + (n_sust or 0))
-    monkeypatch.setattr(
-        bench, "_sustained_ring_mega_xrt",
-        lambda pipe, params, blocks, reps, n_sust=None:
-        300000.0 + (n_sust or 0))
-    monkeypatch.setattr(
-        bench, "_sustained_agc_ring_xrt",
-        lambda pipe, params, blocks, reps, n_sust=None:
-        50000.0 + (n_sust or 0))
+        lambda pipe, params, ring, reps, n_sust=None:
+        200000.0 + (n_sust or 0) + (1000.0 if pipe._i16_ingest else 0.0))
     yield
 
 
-RING_KEYS = [
-    "sustained_{}_ring_xrt", "sustained_{}_ring_mega_xrt",
-    "sustained_{}_ring_asym2048_xrt", "sustained_{}_ring_mega_asym2048_xrt",
-]
-
-
 def test_run_config_publishes_every_ring_leg(flow_env):
-    """All four serving forms (pair, f32, pcm16, i16io) publish the full
-    ring/mega/asymptote key set from the shared leg suite."""
-    r = bench.run_config(batch=8, nblocks=2, reps=1, strategy="td_mxu",
-                         precision="B3")
-    for form in ("pair", "f32", "pcm16", "i16io"):
-        for tmpl in RING_KEYS:
-            key = tmpl.format(form)
-            assert r.get(key) is not None, f"missing {key}"
+    """All three serving forms (f32, pcm16, int16 I/O) publish the ring
+    and asymptote keys from the shared leg suite."""
+    r = bench.run_config(batch=8, nblocks=2, reps=1, strategy="td_mxu")
+    for form in ("f32", "pcm16", "i16io"):
+        for tmpl in ("sustained_{}_ring_xrt",
+                     "sustained_{}_ring_asym2048_xrt"):
+            assert r.get(tmpl.format(form)) is not None, tmpl.format(form)
     # default legs see n_sust=None (the env default applies inside the
     # real function); asymptote legs see the explicit 8
-    assert r["sustained_pair_ring_xrt"] == 200000.0
-    assert r["sustained_pair_ring_asym2048_xrt"] == 200008.0
-    assert r["sustained_i16io_ring_mega_xrt"] == 300000.0
-    assert r["sustained_i16io_ring_mega_asym2048_xrt"] == 300008.0
-    assert r["mfu_ring"] and r["mfu_f32_ring"]
+    assert r["sustained_f32_ring_xrt"] == 200000.0
+    assert r["sustained_f32_ring_asym2048_xrt"] == 200008.0
+    assert r["sustained_i16io_ring_asym2048_xrt"] == 201008.0
+    assert r["mfu"] is not None
     # methodology contract: the headline name carries the methodology
-    assert r["methodology"] in ("sustained", "sustained_f32ring", "chained")
+    assert r["methodology"] == "sustained_f32ring"
+    assert r["metric"].startswith("sustained_f32ring_xrt")
 
 
 def test_ring_leg_suite_keeps_earlier_measurements(flow_env, monkeypatch):
-    """A failing asymptote leg must not discard the measured base legs
-    (the regression that motivated the suite)."""
+    """A failing leg fails the run: the asymptote's exception propagates
+    (the harness no longer swallows failures), after the base leg ran."""
     calls = []
 
-    def ring(pipe, params, blocks, reps, n_sust=None):
+    def ring(pipe, params, r, reps, n_sust=None):
         calls.append(n_sust)
         if n_sust is not None:
             raise RuntimeError("asymptote leg blew up")
         return 123.0
 
     monkeypatch.setattr(bench, "_sustained_ring_xrt", ring)
-    monkeypatch.setattr(
-        bench, "_sustained_ring_mega_xrt",
-        lambda pipe, params, blocks, reps, n_sust=None:
-        (_ for _ in ()).throw(RuntimeError("mega blew up")))
-    out = bench._ring_leg_suite(object(), object(), object(), 1, "test")
-    assert out["ring"] == 123.0  # survived every later-leg failure
-    assert out["mega"] is None
-    assert out["asym"] is None and out["mega_asym"] is None
+    with pytest.raises(RuntimeError, match="asymptote"):
+        bench._ring_leg_suite(object(), object(), object(), 1, "test")
     assert calls == [None, 8]
 
 
 def test_ring_leg_suite_skips_asymptote_at_or_below_sustain(
         flow_env, monkeypatch):
     monkeypatch.setenv("AFP_BENCH_SUSTAIN_ASYMPTOTE", "4")  # == SUSTAIN
-    out = bench._ring_leg_suite(object(), object(), object(), 1, "test")
-    assert out["ring"] == 200000.0 and out["mega"] == 300000.0
-    assert out["asym"] is None and out["mega_asym"] is None
+
+    class P:
+        _i16_ingest = False
+
+    out = bench._ring_leg_suite(P(), object(), object(), 1, "test")
+    assert out["ring"] == 200000.0
+    assert out["asym"] is None
 
 
-def test_run_agc_config_i16io_nested_in_pcm16_asym(flow_env, monkeypatch):
-    """The int16-I/O AGC leg runs exactly when the pcm16 asymptote does
-    (one guard, not two drifting copies), and ring keys publish."""
-    from afp_tpu.engine.pipeline import Pipeline
-
-    # the fused AGC serving ring only engages on real TPU; force the
-    # gates open for a pure control-flow check
-    monkeypatch.setattr(Pipeline, "supports_ring_step",
-                        property(lambda self: True))
-    orig_init = Pipeline.__init__
-
-    def patched(self, *a, **k):
-        orig_init(self, *a, **k)
-        self.__dict__["_i16_agc_raw"] = True
-
-    monkeypatch.setattr(Pipeline, "__init__", patched)
+def test_run_agc_config_i16io_nested_in_pcm16_asym(flow_env):
+    """The C8 leg publishes the f32 and pcm16 serving rings (default and
+    asymptote) beside the chained and sustained loops."""
     r = bench.run_agc_config(batch=8, nblocks=2, reps=1,
                              strategy="td_mxu", agc_mode="exact")
-    assert r["ring"] == 50000.0 and r["ring_asym"] == 50008.0
-    assert r["ring_pcm16"] == 50000.0 and r["ring_pcm16_asym"] == 50008.0
-    assert r["ring_i16io_asym"] == 50008.0
+    assert r["ring"] == 200000.0 and r["ring_asym"] == 200008.0
+    assert r["ring_pcm16"] == 201000.0 and r["ring_pcm16_asym"] == 201008.0
     assert r["sustained"] == 100000.0
 
 
 def test_per_stream_ring_leg_wiring(flow_env, monkeypatch):
-    """The r4 per-stream banked ring leg: builds the 4-design bank on the
-    headline-shaped (shrunk) config and publishes both keys from the
-    stubbed timers."""
+    """The per-stream filter-bank ring leg builds the 4-design bank on the
+    headline-shaped (shrunk) config and publishes its key."""
     monkeypatch.setenv("AFP_BENCH_RING_BLOCKS", "2")
     monkeypatch.setattr(
         bench, "_time_sustained",
         lambda label, dispatch, pipe, n_sust, K, batch, blocksize, reps:
         float(777000))
     out = bench.run_per_stream_ring_xrt(32, 2)
-    assert out["per_stream_ring_xrt"] == 777000
-    assert out["per_stream_ring_mega_xrt"] == 777000
-    # r5: the per-tile band-DMA ablation baseline publishes alongside
-    assert out["per_stream_ring_pertile_xrt"] == 777000
+    assert out == {"per_stream_ring_xrt": 777000}
 
 
 def test_reconfig_latency_leg(flow_env, rng):
-    """The r5 live-reconfig leg: a mid-serve gain swap is detected at the
+    """The live-reconfig leg: a mid-serve gain swap is detected at the
     chunk boundary (effect_blocks == 0 for a boundary-aligned swap) with
     a finite wall latency."""
     out = bench.run_reconfig_latency(1)
@@ -156,32 +112,27 @@ def test_reconfig_latency_leg(flow_env, rng):
     assert 0.0 < out["reconfig_to_effect_ms"] < 60000.0
 
 
-def test_agc_ring_hbm_frac_model():
-    """The analytic HBM roofline model: exact mode counts 7 full arrays;
-    the fast-mode means path shrinks the d term 32x; pcm16 halves the x
-    reads."""
-    from afp_tpu.engine import Pipeline, StreamConfig
+def test_peak_table_is_keyed_by_device_kind():
+    """The H100 row carries the data-sheet peaks; an unknown device is an
+    error, never a default."""
+    row = bench._PEAKS["NVIDIA H100 80GB HBM3"]
+    assert row["bf16"] == 989e12 and row["tf32"] == 495e12
+    assert row["fp32"] == 67e12 and row["hbm"] == 3.35e12
+    assert bench._peaks("NVIDIA H100 80GB HBM3") is row
+    with pytest.raises(KeyError, match="no published peaks"):
+        bench._peaks("cpu")
 
-    cfg = StreamConfig(
-        samplerate=44100, blocksize=2048, upsample_factor=2, numtaps=129,
-        batch=256, eq_enabled=True, agc_enabled=True, agc_mode="exact",
-        agc_window_size=512, agc_carry=True, dither_kind="tpdf",
-        output_clip=0.99, conv_strategy="td_mxu")
-    pipe = Pipeline(cfg)
-    xrt = 500000.0
-    f_exact = bench._agc_ring_hbm_frac(pipe, 256, 2048, xrt)
-    import dataclasses
 
-    fast = Pipeline(dataclasses.replace(cfg, agc_mode="fast"))
-    f_fast = bench._agc_ring_hbm_frac(fast, 256, 2048, xrt)
-    assert 0 < f_fast < f_exact  # fewer bytes at the same wall → lower frac
-    # d term: exact carries 2 full arrays of the 7+; means cuts ~27%
-    assert f_fast / f_exact < 0.80
+def test_bench_main_needs_a_gpu(capsys):
+    """On the CPU the harness exits non-zero and prints no result line."""
+    assert bench.main([]) == 1
+    out = capsys.readouterr()
+    assert "needs a GPU" in out.err and "metric" not in out.out
 
 
 def test_chain_imaging_report_keys_and_gate():
     """The cross-kernel imaging oracle publishes the default-tier key and
-    enforces the −90 dB gate on it (the r4 default-config contract)."""
+    enforces the −90 dB gate on it (the default-config contract)."""
     out = bench.chain_imaging_report()
     q = out["resample_default_quality"]
     assert q == "hq"

@@ -9,11 +9,11 @@ import numpy as np
 import pytest
 import scipy.signal as sps
 
-from afp_tpu.design import create_fir_filter, design_windowed_sinc, freqz
+from afp.design import create_fir_filter, design_windowed_sinc, freqz
 
 
 def oracle_design(cutoff, numtaps, window, filter_type, samplerate):
-    """scipy replica of /root/reference/filter_methods.py:19-75."""
+    """scipy replica of reference/filter_methods.py:19-75."""
     n = np.arange(numtaps)
     t = n - (numtaps - 1) / 2
     t[t == 0] = 1e-20
@@ -129,7 +129,7 @@ def test_freqz_mulmod_exact_no_overflow():
     the largest supported M and random operands."""
     import jax.numpy as jnp
 
-    from afp_tpu.design.freqz import _mulmod_i32, _mulmod_tables
+    from afp.design.freqz import _mulmod_i32, _mulmod_tables
 
     rng = np.random.default_rng(3)
     for M in (16000, 2**17, 2**20):  # small, overflowing, bound
@@ -165,7 +165,7 @@ def test_firwin_even_numtaps_highpass_rejected():
 
 def test_freqz_jax_matches_numpy():
     h = oracle_design(11000, 129, "hamming", "lowpass", 88200)
-    from afp_tpu.design import freqz_jax
+    from afp.design import freqz_jax
 
     w_j, H_j = freqz_jax(np.asarray(h, dtype=np.float32), worN=2000, fs=88200)
     w_n, H_n = freqz(h, worN=2000, fs=88200)
@@ -175,8 +175,8 @@ def test_freqz_jax_matches_numpy():
 
 def test_freqz_jax_long_filter_direct_path():
     """len(h) > 2·worN must take the direct-evaluation branch, like the
-    numpy path (VERDICT r1 weak #8: the rfft would alias long filters)."""
-    from afp_tpu.design import freqz_jax
+    numpy path."""
+    from afp.design import freqz_jax
 
     h = np.random.default_rng(2).normal(size=700).astype(np.float32)
     w_j, H_j = freqz_jax(h, worN=256, fs=2.0)
@@ -187,14 +187,14 @@ def test_freqz_jax_long_filter_direct_path():
 
 
 def test_highpass_at_nyquist_rejected():
-    """r5 fuzz find: a highpass cutoff at/above Nyquist designs to the
+    """Found by fuzzing: a highpass cutoff at/above Nyquist designs to the
     identically-zero kernel and its cos-sum normalization returned silent
     NaNs — now rejected loudly at the design layer, while the engine's
     validate() clamps strictly inside Nyquist (never-raise contract)."""
     import pytest
 
-    from afp_tpu.design import create_fir_filter
-    from afp_tpu.engine import StreamConfig
+    from afp.design import create_fir_filter
+    from afp.engine import StreamConfig
 
     with pytest.raises(ValueError, match="Nyquist"):
         create_fir_filter(method="window", cutoff=11025.0, numtaps=65,
@@ -205,7 +205,7 @@ def test_highpass_at_nyquist_rejected():
                        filter_type="highpass", cutoff=14000.0,
                        eq_enabled=False, agc_enabled=False).validate()
     assert cfg.cutoff < 22050 / 2
-    from afp_tpu.engine import PipelineParams
+    from afp.engine import PipelineParams
 
     p = PipelineParams.design(cfg)
     assert np.all(np.isfinite(p.main_taps))

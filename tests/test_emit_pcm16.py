@@ -1,12 +1,11 @@
 """int16 PCM output (``StreamConfig.emit='pcm16'``): the final output stage
-quantizes ``int16(clip(round(y·32768), ±fs))`` — fused into the conv
-kernel's store on the td serving paths (`fir_td._finish_tile`), an XLA
-epilogue everywhere else (`fir_td.quantize_pcm16`), SAME quantizer either
-way.  Output HBM bytes and the device→host drain halve.
+quantizes ``int16(clip(round(y·32768), ±fs))`` in the output epilogue
+(`ops.pcm16.quantize_pcm16`) on every path.  The device→host drain
+halves.
 
 This is the dither's actual target format: the reference dithers so the
 sound card's 16-bit requantization decorrelates
-(`/root/reference/stream_process.py:83-90`); emit='pcm16' makes that
+(`reference/stream_process.py:83-90`); emit='pcm16' makes that
 quantization explicit and on-device (validate() clamps dither_bits to ≤16
 so the dither actually sits at the output quantizer's LSB).
 """
@@ -16,8 +15,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from afp_tpu.engine import Pipeline, PipelineParams, StreamConfig
-from afp_tpu.ops.pallas.fir_td import quantize_pcm16
+from afp.engine import Pipeline, PipelineParams, StreamConfig
+from afp.ops.pcm16 import quantize_pcm16
 
 #: heavy suite — excluded from the fast pass (docs/TESTING.md tiering);
 #: run the FULL suite before committing kernel/engine changes
@@ -66,7 +65,7 @@ def test_emit_validation():
 
 def test_emit_preset_excluded(tmp_path):
     """emit is deployment-shape: presets must not carry it."""
-    from afp_tpu.engine.presets import PresetStore
+    from afp.engine.presets import PresetStore
 
     store = PresetStore(str(tmp_path / "p.json"))
     store.save_preset("p", make_cfg())
@@ -89,8 +88,7 @@ def test_quantizer_semantics():
                                            ("fft", "resample")])
 def test_staged_emit_matches_quantized_f32(rng, strategy, down):
     """emit='pcm16' staged steps ≡ quantize(emit='f32' steps) BITWISE on
-    both conv strategies — the in-kernel store and the XLA epilogue run
-    the same quantizer.  Dither on: both sides at 16 bits (the clamp)."""
+    both conv strategies.  Dither on: both sides at 16 bits (the clamp)."""
     cfg16 = make_cfg(conv_strategy=strategy, downsample_mode=down,
                      dither_kind="tpdf", dither_bits=16)
     cfgf = dataclasses.replace(cfg16, emit="f32").validate()
@@ -109,10 +107,8 @@ def test_staged_emit_matches_quantized_f32(rng, strategy, down):
 
 
 def test_ring_and_mega_emit_match(rng):
-    """Serving rings with an int16 output ring: per-step ring, run_ring,
-    and the megakernel all equal quantize(f32 ring) bitwise (dither off —
-    the interpret-mode constraint; on TPU the fused dither composes,
-    hw_check certifies)."""
+    """Serving rings with an int16 output ring equal quantize(f32 ring)
+    bitwise (the megakernel form this once covered is gone)."""
     cfg16 = make_cfg()
     cfgf = dataclasses.replace(cfg16, emit="f32").validate()
     p16, pf = Pipeline(cfg16), Pipeline(cfgf)
@@ -122,16 +118,12 @@ def test_ring_and_mega_emit_match(rng):
     K = 3
     ring = jnp.asarray(blocks_f32(rng, (K, 4, 512)))
     out16 = jnp.zeros((K, 4, 512), jnp.int16)
-    _, out16 = p16.run_ring(pp16, p16.init_state(seed=2), ring, None,
+    _, out16 = p16.run_ring(pp16, p16.init_state(seed=2), ring,
                             out16, K)
     outf = jnp.zeros((K, 4, 512), jnp.float32)
-    _, outf = pf.run_ring(ppf, pf.init_state(seed=2), ring, None, outf, K)
+    _, outf = pf.run_ring(ppf, pf.init_state(seed=2), ring, outf, K)
     np.testing.assert_array_equal(np.asarray(out16),
                                   np.asarray(quantize_pcm16(outf)))
-    outm = jnp.zeros((K, 4, 512), jnp.int16)
-    _, outm = p16.run_ring_mega(pp16, p16.init_state(seed=2), ring, None,
-                                outm, K)
-    np.testing.assert_array_equal(np.asarray(outm), np.asarray(out16))
 
 
 def test_ring_dtype_contract(rng):
@@ -139,49 +131,52 @@ def test_ring_dtype_contract(rng):
     pp16 = p16.device_params(PipelineParams.design(p16.cfg))
     ring = jnp.zeros((2, 4, 512), jnp.float32)
     with pytest.raises(ValueError, match="int16"):
-        p16.run_ring(pp16, p16.init_state(), ring, None,
+        p16.run_ring(pp16, p16.init_state(), ring,
                      jnp.zeros((2, 4, 512), jnp.float32), 2)
     pf = Pipeline(make_cfg(emit="f32"))
     ppf = pf.device_params(PipelineParams.design(pf.cfg))
     with pytest.raises(ValueError, match="float32"):
-        pf.run_ring(ppf, pf.init_state(), ring, None,
+        pf.run_ring(ppf, pf.init_state(), ring,
                     jnp.zeros((2, 4, 512), jnp.int16), 2)
 
 
 def test_ring_interpret_dither_refused(rng):
-    """Off-TPU the post-kernel dither pass cannot run after the in-kernel
-    quantize — the ring step must refuse, not corrupt."""
+    """Dither composes with the int16 quantize on the ring (it runs before
+    it in the shared epilogue): the dithered int16 ring equals the staged
+    int16 steps."""
     p = Pipeline(make_cfg(dither_kind="tpdf"))
-    if not p._pl_interpret:
-        pytest.skip("TPU backend: fused dither composes with the quantize")
     pp = p.device_params(PipelineParams.design(p.cfg))
-    ring = jnp.zeros((2, 4, 512), jnp.float32)
-    with pytest.raises(ValueError, match="dither"):
-        p.run_ring(pp, p.init_state(), ring, None,
-                   jnp.zeros((2, 4, 512), jnp.int16), 2)
+    sig = blocks_f32(rng, (2, 4, 512))
+    st = p.init_state(seed=6)
+    gold = []
+    for b in sig:
+        st, y = p._step_impl(pp, st, jnp.asarray(b))
+        gold.append(np.asarray(y))
+    _, out = p.run_ring(pp, p.init_state(seed=6), jnp.asarray(sig),
+                        jnp.zeros((2, 4, 512), jnp.int16), 2)
+    np.testing.assert_array_equal(np.asarray(out), np.stack(gold))
 
 
 def test_full_int16_io_agc_chain(rng, monkeypatch):
     """The complete production transport: pcm16 IN and pcm16 OUT through
-    the fused AGC (C8) chain — int16 ring to int16 ring, bit-equal to
+    the AGC (C8) chain — int16 ring to int16 ring, bit-equal to
     quantize(f32-in/f32-out chain fed the same n/32768 floats)."""
-    monkeypatch.setenv("AFP_AGC_FUSED_FORCE", "1")
-    cfg = make_cfg(ingest="pcm16", batch=1024, agc_enabled=True,
+    cfg = make_cfg(ingest="pcm16", batch=16, agc_enabled=True,
                    agc_mode="exact", agc_window_size=256, agc_carry=True,
                    output_clip=0.99)
     cfgf = dataclasses.replace(cfg, ingest="f32", emit="f32").validate()
     p, pf = Pipeline(cfg), Pipeline(cfgf)
-    assert p._i16_agc_raw and p._emit16 and p.supports_ring_step
+    assert p._i16_ingest and p._emit16 and p.supports_ring_step
     pp = p.device_params(PipelineParams.design(cfg))
     ppf = pf.device_params(PipelineParams.design(cfgf))
     K = 2
-    iring = jnp.asarray(rng.integers(-32768, 32768, size=(K, 1024, 512),
+    iring = jnp.asarray(rng.integers(-32768, 32768, size=(K, 16, 512),
                                      dtype=np.int16))
     fring = iring.astype(jnp.float32) / 32768.0
-    out16 = jnp.zeros((K, 1024, 512), jnp.int16)
-    st, out16 = p.run_ring(pp, p.init_state(seed=3), iring, None, out16, K)
-    outf = jnp.zeros((K, 1024, 512), jnp.float32)
-    stf, outf = pf.run_ring(ppf, pf.init_state(seed=3), fring, None,
+    out16 = jnp.zeros((K, 16, 512), jnp.int16)
+    st, out16 = p.run_ring(pp, p.init_state(seed=3), iring, out16, K)
+    outf = jnp.zeros((K, 16, 512), jnp.float32)
+    stf, outf = pf.run_ring(ppf, pf.init_state(seed=3), fring,
                             outf, K)
     np.testing.assert_array_equal(np.asarray(out16),
                                   np.asarray(quantize_pcm16(outf)))
@@ -206,7 +201,7 @@ def test_waterfall_on_quantized_output(rng):
 
 
 def test_engine_emit16_surfaces(rng):
-    from afp_tpu.engine.engine import StreamEngine
+    from afp.engine.engine import StreamEngine
 
     eng = StreamEngine(make_cfg(), seed=0)
     assert eng._out_dtype == np.int16
@@ -221,8 +216,8 @@ def test_engine_emit16_surfaces(rng):
 
 
 def test_dispatcher_emit16(rng):
-    from afp_tpu.engine.engine import StreamEngine
-    from afp_tpu.runtime.dispatcher import BlockDispatcher
+    from afp.engine.engine import StreamEngine
+    from afp.runtime.dispatcher import BlockDispatcher
 
     eng = StreamEngine(make_cfg(), seed=0)
     d = BlockDispatcher(eng)
@@ -238,7 +233,7 @@ def test_dispatcher_emit16(rng):
 
 
 def test_ring_server_emit16(rng):
-    from afp_tpu.runtime.serving import RingServer
+    from afp.runtime.serving import RingServer
 
     p = Pipeline(make_cfg())
     pp = p.device_params(PipelineParams.design(p.cfg))
@@ -259,8 +254,8 @@ def test_ring_server_emit16(rng):
 def test_controller_spectrum_dequantizes(rng):
     """GUI live-spectrum feed with emit='pcm16': int16 blocks dequantize
     (n/32768) before the FFT so dB levels match the f32 contract."""
-    from afp_tpu.engine.engine import StreamEngine
-    from afp_tpu.ui.controller import EqualizerController
+    from afp.engine.engine import StreamEngine
+    from afp.ui.controller import EqualizerController
 
     eng = StreamEngine(make_cfg(), seed=0)
     c = EqualizerController(eng)
@@ -277,8 +272,8 @@ def test_controller_spectrum_dequantizes(rng):
 def test_cli_emit16_roundtrip(rng, tmp_path):
     """CLI --emit pcm16: the output WAV holds the device's raw int16
     samples (no host float round trip, ×32768 quantizer semantics)."""
-    from afp_tpu.cli import main
-    from afp_tpu.utils import read_wav_pcm16, write_wav
+    from afp.cli import main
+    from afp.utils import read_wav_pcm16, write_wav
 
     x = (rng.normal(size=(1, 4096)) * 0.3).astype(np.float32)
     src = str(tmp_path / "in.wav")
@@ -299,7 +294,7 @@ def test_engine_emit16_process_frames_keeps_int16(rng):
     are sample-identical to blocksize-fed process_block output (the framer
     used to default to float32 and silently coerce the PCM to raw-integer
     floats)."""
-    from afp_tpu.engine.engine import StreamEngine
+    from afp.engine.engine import StreamEngine
 
     total = 512 * 4
     sig = blocks_f32(rng, (4, total))
@@ -336,8 +331,8 @@ def test_engine_emit16_process_frames_keeps_int16(rng):
 def test_engine_emit16_checkpoint_restores_int16_out_framer(rng, tmp_path):
     """Checkpoint restore must rebuild the OUTPUT framer as int16 under
     emit='pcm16' (it used to restore float32, coercing saved residuals)."""
-    from afp_tpu.engine.checkpoint import load_checkpoint, save_checkpoint
-    from afp_tpu.engine.engine import StreamEngine
+    from afp.engine.checkpoint import load_checkpoint, save_checkpoint
+    from afp.engine.engine import StreamEngine
 
     sig = blocks_f32(rng, (4, 512 * 3 + 137))
     eng = StreamEngine(make_cfg(), seed=3)

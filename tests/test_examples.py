@@ -26,7 +26,7 @@ EXAMPLES = [
 @pytest.mark.parametrize("argv", EXAMPLES, ids=lambda a: " ".join(a))
 def test_example_runs(argv):
     env = dict(os.environ)
-    env["AFP_FORCE_CPU"] = "1"
+    env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run(
         [sys.executable] + argv, cwd=REPO, env=env,
         capture_output=True, text=True, timeout=600,

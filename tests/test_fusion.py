@@ -4,7 +4,7 @@ multirate chain bit-near for every mode combination."""
 import numpy as np
 import pytest
 
-from afp_tpu.engine import Pipeline, PipelineParams, StreamConfig
+from afp.engine import Pipeline, PipelineParams, StreamConfig
 
 
 def run_pipe(cfg, sig):

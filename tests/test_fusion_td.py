@@ -1,9 +1,9 @@
-"""td_mxu strategy equivalence: Pallas MXU conv inside the pipeline must
-match the FFT strategy block for block (interpret mode on CPU)."""
+"""td_mxu strategy equivalence: the band-matrix product inside the pipeline
+must match the FFT strategy block for block."""
 import numpy as np
 import pytest
 
-from afp_tpu.engine import Pipeline, PipelineParams, StreamConfig
+from afp.engine import Pipeline, PipelineParams, StreamConfig
 
 
 def run_pipe(cfg, sig):
@@ -30,5 +30,9 @@ def test_td_mxu_matches_fft(rng, upf, eq):
 
 
 def test_td_mxu_requires_fusion():
-    with pytest.raises(ValueError):
-        StreamConfig(conv_strategy="td_mxu", fuse_rate_conversion=False).validate()
+    """The band-matrix product needs the fused single-rate cascade; without
+    fusion a td_mxu config runs the literal multirate FFT chain."""
+    cfg = StreamConfig(conv_strategy="td_mxu", fuse_rate_conversion=False)
+    pipe = Pipeline(cfg)
+    assert not pipe.fused and not pipe._use_td
+    assert Pipeline(StreamConfig(conv_strategy="td_mxu"))._use_td

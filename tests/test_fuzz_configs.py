@@ -13,12 +13,11 @@ invariants that must be true of ANY config:
   3. ``process_signal(fold=False)`` ≡ the per-block ``step()`` loop (the
      scan is the same step body — lax.scan vs the Python loop);
   4. when ``supports_fold`` and dither is off, ``fold='prefer'`` matches
-     the scan within the documented interpret-GEMM bound
-     (tests/test_fold.py:CPU_ATOL; bit-exact on TPU, hw_check certifies).
+     the scan within the documented batched-product bound
+     (tests/test_fold.py:CPU_ATOL).
 
 Seeded (no flakes) and deliberately drawn from VALID vocabulary with a few
-invalid values mixed in to exercise the rejection paths.  Runs the fused
-AGC kernels via AFP_AGC_FUSED_FORCE like the rest of the CPU suite.
+invalid values mixed in to exercise the rejection paths.
 """
 import dataclasses
 
@@ -27,7 +26,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from afp_tpu.engine import Pipeline, PipelineParams, StreamConfig
+from afp.engine import Pipeline, PipelineParams, StreamConfig
 
 #: heavy suite — excluded from the fast pass (docs/TESTING.md tiering);
 #: run the FULL suite before committing kernel/engine changes
@@ -63,7 +62,7 @@ def _draw(rng: np.random.Generator) -> StreamConfig:
         conv_strategy=pick("fft", "td_mxu"),
         # mostly 'fast' for interpret-mode runtime; 'hq' sampled for coverage
         resample_quality=pick("fast", "fast", "fast", "hq"),
-        ingest=pick("f32", "f32", "pcm16", "pair"),
+        ingest=pick("f32", "f32", "pcm16", "pair"),  # 'pair' is invalid
         emit=pick("f32", "f32", "pcm16"),
         output_clip=pick(None, 0.99),
     )
@@ -85,7 +84,6 @@ def _blocks(rng, cfg, nb=3):
 
 @pytest.mark.parametrize("seed", range(N_DRAWS))
 def test_fuzz_config_invariants(seed, monkeypatch):
-    monkeypatch.setenv("AFP_AGC_FUSED_FORCE", "1")
     rng = np.random.default_rng(1000 + seed)
     raw = _draw(rng)
     try:
@@ -97,10 +95,6 @@ def test_fuzz_config_invariants(seed, monkeypatch):
     sig = _blocks(rng, cfg)
 
     def ingest(b):
-        if cfg.ingest == "pair":
-            from afp_tpu.ops.pallas.fir_td import split_bf16
-
-            return split_bf16(jnp.asarray(b))
         return jnp.asarray(b)
 
     # 2. streaming steps: finite, shaped, typed
@@ -148,11 +142,10 @@ def test_fuzz_sharded_matches_unsharded(seed, monkeypatch):
     comparable across layouts."""
     import jax
 
-    from afp_tpu.parallel import ShardedPipeline, make_mesh
+    from afp.parallel import ShardedPipeline, make_mesh
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")
-    monkeypatch.setenv("AFP_AGC_FUSED_FORCE", "1")
     rng = np.random.default_rng(1000 + seed)  # same draws as the main fuzz
     raw = _draw(rng)
     try:
@@ -166,10 +159,6 @@ def test_fuzz_sharded_matches_unsharded(seed, monkeypatch):
     sig = _blocks(rng, cfg)
 
     def ingest(b):
-        if cfg.ingest == "pair":
-            from afp_tpu.ops.pallas.fir_td import split_bf16
-
-            return split_bf16(jnp.asarray(b))
         return jnp.asarray(b)
 
     st = pipe.init_state(seed=3)

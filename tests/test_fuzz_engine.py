@@ -19,7 +19,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-from afp_tpu.engine import StreamConfig, StreamEngine
+from afp.engine import StreamConfig, StreamEngine
 
 N_DRAWS = 8
 

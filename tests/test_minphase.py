@@ -3,8 +3,8 @@ import numpy as np
 import pytest
 import scipy.signal as sps
 
-from afp_tpu.design import minimum_phase, to_minimum_phase, is_symmetric
-from afp_tpu.design.minphase import normalize_peak
+from afp.design import minimum_phase, to_minimum_phase, is_symmetric
+from afp.design.minphase import normalize_peak
 
 
 def _lp(numtaps):

@@ -1,13 +1,10 @@
-"""int16 PCM ingest through the AGC (C8) chain: the RMS front half and the
-scan+clip+apply back half read the RAW int16 block/ring slot and convert in
-VMEM (``n/32768`` — exact, `ops/pallas/fir_td.py:_load_f32`), so the chain's
-two f32 x-reads halve while every output stays BIT-IDENTICAL to feeding the
-same floats through ``ingest='f32'``.  The conv consumes the gain-applied
-bf16 pair as usual, so the overlap tail is a pair (NOT raw int16 — that
-carry only applies when the conv eats x itself; `Pipeline._i16_tail`).
+"""int16 PCM ingest through the AGC (C8) chain: the step converts the raw
+int16 block at device entry (``n/32768`` — exact, `ops/pcm16.py`), so every
+output stays BIT-IDENTICAL to feeding the same floats through
+``ingest='f32'``; the overlap tail is the f32 gain-applied history.
 
 Reference semantics under test: the AGC chain of
-`/root/reference/stream_process_AGC.py:43-89` (moving RMS → desired gain →
+`reference/stream_process_AGC.py:43-89` (moving RMS → desired gain →
 attack/release smoothing → clip → apply) over 16-bit sources.
 """
 import dataclasses
@@ -16,13 +13,12 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from afp_tpu.engine import Pipeline, PipelineParams, StreamConfig
-from afp_tpu.ops.pallas.fir_td import PCM16_SCALE
+from afp.engine import Pipeline, PipelineParams, StreamConfig
+from afp.ops.pcm16 import PCM16_SCALE
 
 #: heavy suite — excluded from the fast pass (docs/TESTING.md tiering);
 #: run the FULL suite before committing kernel/engine changes
 pytestmark = pytest.mark.slow
-
 
 
 @pytest.fixture
@@ -33,7 +29,7 @@ def rng():
 def c8_cfg(**kw):
     base = dict(
         samplerate=44100, blocksize=512, upsample_factor=2, numtaps=33,
-        batch=1024, eq_enabled=True, agc_enabled=True, agc_mode="exact",
+        batch=16, eq_enabled=True, agc_enabled=True, agc_mode="exact",
         agc_window_size=256, agc_carry=True, dither_kind="tpdf",
         output_clip=0.99, conv_strategy="td_mxu", ingest="pcm16",
         resample_quality="fast",  # tier mechanics tested elsewhere
@@ -46,248 +42,130 @@ def i16_blocks(rng, shape):
     return rng.integers(-32768, 32768, size=shape, dtype=np.int16)
 
 
-@pytest.fixture
-def force_fused(monkeypatch):
-    monkeypatch.setenv("AFP_AGC_FUSED_FORCE", "1")
-
-
-# ---------------------------------------------------------------- gating
-
-
-def test_pcm16_agc_flags(force_fused):
-    p = Pipeline(c8_cfg())
-    assert p._i16_ingest and p._agc_chain_pair and p._i16_agc_raw
-    assert not p._i16_tail  # conv eats the gain-applied pair, not x
-    assert isinstance(p.init_state().conv_tail, tuple)
-    assert p.supports_ring_step
-    # no AGC → raw int16 tail, as before
-    p2 = Pipeline(c8_cfg(agc_enabled=False))
-    assert p2._i16_tail and p2.init_state().conv_tail.dtype == jnp.int16
-
-
-def test_pcm16_agc_fallback_modes_supported(force_fused):
-    """agc_mode='fast' rides the fused chain since r4 (the blockwise
-    recurrence runs inside the same apply kernel — VERDICT r3 #5), so
-    pcm16 + fast keeps the raw-int16 handoff AND the ring form.  Only
-    'parallel' (the associative-scan solver, an XLA composition) stays
-    unfused: entry conversion, ring refused."""
-    p = Pipeline(c8_cfg(agc_mode="fast"))
-    assert p._i16_ingest and p._i16_agc_raw and p._agc_blockwise == 32
-    assert p.supports_ring_step
-    p = Pipeline(c8_cfg(agc_mode="parallel"))
-    assert p._i16_ingest and not p._i16_agc_raw
-    assert not p.supports_ring_step
-
-
-def test_pcm16_agc_without_force_converts_at_entry(rng):
-    """Interpret mode without the force hook: the fused kernels are off
-    (`_agc_chain_pair` False) — pcm16 must still work via the entry
-    conversion.  Block 0 matches the f32 pipeline bit-exactly (no tail
-    yet); later blocks differ only in the pair-tail merge class: pcm16
-    forces `_conv_pair` (bf16 pair tail, merged for the staged f32 conv,
-    ~2⁻¹⁶ relative on the tail-covered leading outputs) while the
-    unforced f32 pipeline carries an f32 tail."""
-    cfg16, cfgf = c8_cfg(), c8_cfg(ingest="f32")
-    p16, pf = Pipeline(cfg16), Pipeline(cfgf)
-    if p16._agc_chain_pair:
-        pytest.skip("fused path live (TPU backend) — covered elsewhere")
-    assert not p16._i16_agc_raw
-    pp16 = p16.device_params(PipelineParams.design(cfg16))
-    ppf = pf.device_params(PipelineParams.design(cfgf))
-    blocks = i16_blocks(rng, (2, 1024, 512))
+@pytest.mark.parametrize("mode", ["exact", "fast", "parallel"])
+def test_pcm16_agc_staged_matches_f32(rng, mode):
+    """pcm16 + AGC staged steps ≡ f32 ingest fed n/32768, bitwise, in every
+    AGC mode — outputs, AGC gain carry, and overlap tail."""
+    p16 = Pipeline(c8_cfg(agc_mode=mode))
+    pf = Pipeline(c8_cfg(agc_mode=mode, ingest="f32"))
+    pp16 = p16.device_params(PipelineParams.design(p16.cfg))
+    ppf = pf.device_params(PipelineParams.design(pf.cfg))
+    blocks = i16_blocks(rng, (3, 16, 512))
     st16, stf = p16.init_state(seed=1), pf.init_state(seed=1)
-    for i in range(2):
-        st16, y16 = p16._step_impl(pp16, st16, jnp.asarray(blocks[i]))
-        stf, yf = pf._step_impl(ppf, stf, jnp.asarray(
-            blocks[i].astype(np.float32) * np.float32(PCM16_SCALE)))
-        if i == 0:
-            np.testing.assert_array_equal(np.asarray(y16), np.asarray(yf))
-        else:
-            np.testing.assert_allclose(np.asarray(y16), np.asarray(yf),
-                                       atol=1e-5, rtol=0)
-
-
-# ------------------------------------------------------------- numerics
-
-
-def test_pcm16_agc_staged_matches_f32(rng, force_fused):
-    """Fused-chain staged steps over raw int16 blocks ≡ the f32 pipeline
-    fed the same n/32768 floats — bit-identical (the in-VMEM conversion
-    is exact, every kernel and tile choice downstream is the same),
-    including the AGC gain carry and the pair conv tail."""
-    cfg16, cfgf = c8_cfg(), c8_cfg(ingest="f32")
-    p16, pf = Pipeline(cfg16), Pipeline(cfgf)
-    assert p16._i16_agc_raw and pf._agc_chain_pair
-    pp16 = p16.device_params(PipelineParams.design(cfg16))
-    ppf = pf.device_params(PipelineParams.design(cfgf))
-    blocks = i16_blocks(rng, (3, 1024, 512))
-    blocks_f = blocks.astype(np.float32) * np.float32(PCM16_SCALE)
-    st16, stf = p16.init_state(seed=1), pf.init_state(seed=1)
-    for i in range(3):
-        st16, y16 = p16._step_impl(pp16, st16, jnp.asarray(blocks[i]))
-        stf, yf = pf._step_impl(ppf, stf, jnp.asarray(blocks_f[i]))
+    for b in blocks:
+        st16, y16 = p16._step_impl(pp16, st16, jnp.asarray(b))
+        stf, yf = pf._step_impl(
+            ppf, stf, jnp.asarray(b.astype(np.float32) * PCM16_SCALE))
         np.testing.assert_array_equal(np.asarray(y16), np.asarray(yf))
     np.testing.assert_array_equal(np.asarray(st16.agc_gain),
                                   np.asarray(stf.agc_gain))
-    np.testing.assert_array_equal(np.asarray(st16.conv_tail[0]),
-                                  np.asarray(stf.conv_tail[0]))
-    np.testing.assert_array_equal(np.asarray(st16.conv_tail[1]),
-                                  np.asarray(stf.conv_tail[1]))
+    np.testing.assert_array_equal(np.asarray(st16.conv_tail),
+                                  np.asarray(stf.conv_tail))
 
 
-def test_pcm16_agc_ring_matches_staged(rng, force_fused):
-    """The fused-AGC serving ring over a RAW int16 ring ≡ the staged pcm16
-    steps, bit-exact (same kernels, slot-select BlockSpec only) — per-step
-    and through run_ring's one-dispatch scan with wraparound."""
-    cfg = c8_cfg()
-    p = Pipeline(cfg)
-    assert p.supports_ring_step and p._i16_agc_raw
-    pp = p.device_params(PipelineParams.design(cfg))
-    K, n_steps, start = 4, 6, 2
-    ring_np = i16_blocks(rng, (K, 1024, 512))
-    ring = jnp.asarray(ring_np)
-
-    st, ref = p.init_state(seed=7), []
-    for i in range(n_steps):
-        st, y = p._step_impl(pp, st, jnp.asarray(ring_np[(start + i) % K]))
+def test_pcm16_agc_ring_matches_staged(rng):
+    """The raw int16 ring through the AGC chain ≡ the staged steps."""
+    p = Pipeline(c8_cfg())
+    assert p.supports_ring_step
+    pp = p.device_params(PipelineParams.design(p.cfg))
+    blocks = i16_blocks(rng, (3, 16, 512))
+    st = p.init_state(seed=2)
+    ref = []
+    for b in blocks:
+        st, y = p._step_impl(pp, st, jnp.asarray(b))
         ref.append(np.asarray(y))
-
-    st2 = p.init_state(seed=7)
-    out = jnp.zeros((K, 1024, 512), jnp.float32)
-    for i in range(n_steps):
-        st2, out = p._ring_step_impl(pp, st2, ring, None,
-                                     (start + i) % K, out)
-        np.testing.assert_array_equal(np.asarray(out)[(start + i) % K],
-                                      ref[i])
+    st2, out = p.run_ring(pp, p.init_state(seed=2), jnp.asarray(blocks),
+                          jnp.zeros((3, 16, 512), jnp.float32), 3)
+    np.testing.assert_array_equal(np.asarray(out), np.stack(ref))
     np.testing.assert_array_equal(np.asarray(st.agc_gain),
                                   np.asarray(st2.agc_gain))
 
-    st3 = p.init_state(seed=7)
-    out3 = jnp.zeros((K, 1024, 512), jnp.float32)
-    st3, out3 = p.run_ring(pp, st3, ring, None, out3, n_steps, start=start)
-    # n_steps > K wraps: after the full dispatch each slot holds its LAST
-    # write, so only the final K steps are still visible
-    for i in range(n_steps - K, n_steps):
-        np.testing.assert_array_equal(np.asarray(out3)[(start + i) % K],
-                                      ref[i])
-    np.testing.assert_array_equal(np.asarray(st.agc_gain),
-                                  np.asarray(st3.agc_gain))
 
-
-def test_pcm16_agc_ring_dtype_contract(rng, force_fused):
-    """A float ring into a pcm16 AGC chain (or an int16 ring into the f32
-    chain) must be refused, never silently converted."""
-    p16 = Pipeline(c8_cfg())
-    pp16 = p16.device_params(PipelineParams.design(p16.cfg))
-    out = jnp.zeros((2, 1024, 512), jnp.float32)
+def test_pcm16_agc_ring_dtype_contract(rng):
+    p = Pipeline(c8_cfg())
+    pp = p.device_params(PipelineParams.design(p.cfg))
     with pytest.raises(ValueError, match="int16"):
-        p16.run_ring(pp16, p16.init_state(), out, None,
-                     jnp.zeros((2, 1024, 512), jnp.float32), 2)
-    pf = Pipeline(c8_cfg(ingest="f32"))
-    ppf = pf.device_params(PipelineParams.design(pf.cfg))
-    with pytest.raises(ValueError, match="float32"):
-        pf.run_ring(ppf, pf.init_state(),
-                    jnp.zeros((2, 1024, 512), jnp.int16), None,
-                    jnp.zeros((2, 1024, 512), jnp.float32), 2)
+        p.run_ring(pp, p.init_state(), jnp.zeros((2, 16, 512), jnp.float32),
+                   jnp.zeros((2, 16, 512), jnp.float32), 2)
 
 
-def test_pcm16_one_kernel_agc(rng, force_fused, monkeypatch):
-    """The opt-in single-kernel AGC over raw int16: staged ≡ ring ≡ the
-    f32 one-kernel chain fed the same floats (bit-exact — the fused
-    kernel's three x views all convert with the same exact map)."""
-    monkeypatch.setenv("AFP_AGC_ONE_KERNEL", "1")
-    cfg16, cfgf = c8_cfg(), c8_cfg(ingest="f32")
-    p16, pf = Pipeline(cfg16), Pipeline(cfgf)
-    assert p16._agc_one_kernel and pf._agc_one_kernel
-    pp16 = p16.device_params(PipelineParams.design(cfg16))
-    ppf = pf.device_params(PipelineParams.design(cfgf))
-    blocks = i16_blocks(rng, (2, 1024, 512))
-    st16, stf = p16.init_state(seed=2), pf.init_state(seed=2)
-    ref = []
-    for i in range(2):
-        st16, y16 = p16._step_impl(pp16, st16, jnp.asarray(blocks[i]))
-        stf, yf = pf._step_impl(ppf, stf, jnp.asarray(
-            blocks[i].astype(np.float32) * np.float32(PCM16_SCALE)))
-        np.testing.assert_array_equal(np.asarray(y16), np.asarray(yf))
-        ref.append(np.asarray(y16))
-    ring = jnp.asarray(blocks)
-    st2 = p16.init_state(seed=2)
-    out = jnp.zeros((2, 1024, 512), jnp.float32)
-    st2, out = p16.run_ring(pp16, st2, ring, None, out, 2)
-    for i in range(2):
-        np.testing.assert_array_equal(np.asarray(out)[i], ref[i])
+def test_ring_server_pcm16_agc(rng):
+    """RingServer over the pcm16 AGC chain: raw int16 input ring — outputs
+    match the staged step loop."""
+    from afp.runtime.serving import RingServer
 
-
-# ------------------------------------------------------ engine / serving
-
-
-def test_ring_server_pcm16_agc(rng, force_fused):
-    """RingServer over the pcm16 AGC chain: raw int16 input ring, fused
-    C8 serving — outputs match the staged step loop."""
-    from afp_tpu.runtime.serving import RingServer
-
-    cfg = c8_cfg()
-    p = Pipeline(cfg)
-    pp = p.device_params(PipelineParams.design(cfg))
-    blocks = i16_blocks(rng, (4, 1024, 512))
-
+    p = Pipeline(c8_cfg())
+    pp = p.device_params(PipelineParams.design(p.cfg))
+    blocks = i16_blocks(rng, (4, 16, 512))
     st, ref = p.init_state(seed=0), []
     for b in blocks:
         st, y = p._step_impl(pp, st, jnp.asarray(b))
         ref.append(np.asarray(y))
-
     srv = RingServer(p, params=pp, slots=4, chunk=2, max_inflight=1, seed=0)
-    assert srv.pcm16 and srv._ring_hi.dtype == jnp.int16
+    assert srv.pcm16 and srv._ring.dtype == jnp.int16
     outs = list(srv.stream(iter(blocks)))
     assert len(outs) == 4
     for i in range(4):
         np.testing.assert_array_equal(outs[i], ref[i])
 
 
-def test_engine_pcm16_agc_block_and_checkpoint(rng, force_fused, tmp_path):
+def test_engine_pcm16_agc_block_and_checkpoint(rng, tmp_path):
     """StreamEngine with pcm16+AGC: int16 blocks through the full ladder,
-    pair conv tail + AGC gain checkpointed and restored bit-exactly."""
-    from afp_tpu.engine.checkpoint import load_checkpoint, save_checkpoint
-    from afp_tpu.engine.engine import StreamEngine
+    conv tail + AGC gain checkpointed and restored bit-exactly."""
+    from afp.engine.checkpoint import load_checkpoint, save_checkpoint
+    from afp.engine.engine import StreamEngine
 
-    eng = StreamEngine(c8_cfg(batch=1024), seed=3)
+    eng = StreamEngine(c8_cfg(), seed=3)
     assert eng._in_dtype == np.int16
-    blocks = i16_blocks(rng, (3, 1024, 512))
+    blocks = i16_blocks(rng, (3, 16, 512))
     for b in blocks[:2]:
         eng.process_block(b)
     path = str(tmp_path / "c8_pcm16.npz")
     save_checkpoint(path, eng)
     y_ref = np.asarray(eng.process_block(blocks[2]))
-
     eng2 = load_checkpoint(path)
     y2 = np.asarray(eng2.process_block(blocks[2]))
     np.testing.assert_array_equal(y_ref, y2)
 
 
-def test_sharded_pcm16_agc_ring(rng, force_fused):
-    """2-device stream-DP over the int16 ring: the sharded fused-AGC chain
-    serves through run_ring bit-exact to the sharded staged run (the
-    per-shard batch keeps the fused-apply tile gate satisfied)."""
+def test_sharded_pcm16_agc_ring(rng):
+    """2-device stream-DP over the int16 ring: the sharded AGC chain serves
+    through run_ring bit-exact to the sharded staged run."""
     import jax
     from jax.sharding import Mesh
 
-    devs = jax.devices()[:2]
-    if len(devs) < 2:
-        pytest.skip("needs 2 devices (conftest forces 8 virtual)")
-    from afp_tpu.parallel.dp import ShardedPipeline
+    from afp.parallel.dp import ShardedPipeline
 
-    cfg = c8_cfg(batch=2048)
-    mesh = Mesh(np.asarray(devs), ("streams",))
-    sp = ShardedPipeline(cfg, mesh)
-    assert sp.pipeline._i16_agc_raw and sp.pipeline.supports_ring_step
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("streams",))
+    sp = ShardedPipeline(c8_cfg(batch=32), mesh)
+    assert sp.supports_ring_step
     params = sp.device_params(PipelineParams.design(sp.cfg))
     K = 3
-    blocks = i16_blocks(rng, (K, 2048, 512))
+    blocks = i16_blocks(rng, (K, 32, 512))
     st, gold = sp.run(params, sp.init_state(seed=5), jnp.asarray(blocks))
-
-    out_ring = jnp.zeros((K, 2048, 512), jnp.float32)
     st2, out_ring = sp.run_ring(params, sp.init_state(seed=5),
-                                jnp.asarray(blocks), None, out_ring, K)
+                                jnp.asarray(blocks),
+                                jnp.zeros((K, 32, 512), jnp.float32), K)
     np.testing.assert_array_equal(np.asarray(out_ring), np.asarray(gold))
     np.testing.assert_array_equal(np.asarray(st.agc_gain),
                                   np.asarray(st2.agc_gain))
+
+
+def test_pcm16_agc_linked_rows_share_gain(rng):
+    """Linked AGC over pcm16 pairs: the group-min pins equal gains within
+    each pair of rows."""
+    p = Pipeline(c8_cfg(agc_link_group=2, dither_kind="off"))
+    pp = p.device_params(PipelineParams.design(p.cfg))
+    b = i16_blocks(rng, (16, 512))
+    st, _ = p._step_impl(pp, p.init_state(), jnp.asarray(b))
+    g = np.asarray(st.agc_gain)
+    np.testing.assert_array_equal(g[0::2], g[1::2])
+
+
+def test_pcm16_agc_config_variants_validate():
+    for kw in (dict(agc_mode="fast"), dict(conv_strategy="fft"),
+               dict(emit="pcm16")):
+        cfg = c8_cfg(**kw)
+        assert Pipeline(cfg).supports_ring_step
+    with pytest.raises(ValueError, match="asrc"):
+        dataclasses.replace(c8_cfg(), source_samplerate=48000).validate()

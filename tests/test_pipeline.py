@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import scipy.signal as sps
 
-from afp_tpu.engine import Pipeline, PipelineParams, StreamConfig
-from afp_tpu.ops.resample import PolyResampler, design_resample_kernel
+from afp.engine import Pipeline, PipelineParams, StreamConfig
+from afp.ops.resample import PolyResampler, design_resample_kernel
 
 #: heavy suite — excluded from the fast pass (docs/TESTING.md tiering);
 #: run the FULL suite before committing kernel/engine changes
@@ -202,9 +202,8 @@ def test_upsampled_rate_output(rng):
 
 
 def test_fused_output_clip_matches_staged(rng):
-    """cfg.output_clip through td_mxu (clip fused into the Pallas store,
-    `pipeline.py` clip_done path) must be bit-exact against clipping an
-    unclipped run — no double clip, no skipped clip."""
+    """cfg.output_clip through td_mxu must be bit-exact against clipping
+    an unclipped run — no double clip, no skipped clip."""
     import dataclasses
 
     base = make_cfg(
@@ -229,122 +228,69 @@ def test_fused_output_clip_matches_staged(rng):
     assert err_db(clipped, fft_clipped) < -84  # clipped-scale denominator
 
 
-def test_pair_ingest_matches_f32(rng):
-    """cfg.ingest='pair' (blocks arrive as the bf16 hi/lo split, no on-device
-    staging) must be BIT-identical to the f32 path across carried blocks —
-    same argument as the AGC conv-pair path: the split is elementwise."""
-    import dataclasses
-
-    from afp_tpu.ops.pallas.fir_td import split_bf16
-
-    base = make_cfg(
-        blocksize=512, upsample_factor=2, numtaps=65, batch=4,
-        eq_enabled=True, conv_strategy="td_mxu", output_clip=0.5,
-    )
-    sig = (rng.normal(size=(3, 4, 512)) * 0.4).astype(np.float32)
-
-    p_ref = Pipeline(base)
-    pr = p_ref.device_params(PipelineParams.design(p_ref.cfg))
-    st = p_ref.init_state()
-    ref = []
-    for b in sig:
-        st, y = p_ref._step_impl(pr, st, b)
-        ref.append(np.asarray(y))
-
-    cfgp = dataclasses.replace(base, ingest="pair")
-    p = Pipeline(cfgp)
-    assert p._pair_ingest and p._conv_pair
-    pp = p.device_params(PipelineParams.design(p.cfg))
-    sp = p.init_state()
-    assert isinstance(sp.conv_tail, tuple)
-    import jax.numpy as jnp
-
-    for i, b in enumerate(sig):
-        sp, y = p._step_impl(pp, sp, split_bf16(jnp.asarray(b)))
-        np.testing.assert_array_equal(np.asarray(y), ref[i])
-
-
-def test_ring_step_matches_pair_step(rng):
-    """Pipeline.ring_step (zero-copy serving ring) must produce the exact
-    per-block outputs of the classic pair-ingest step loop — same carried
-    tail, same dither key schedule — while leaving the other output-ring
-    slots untouched."""
+def test_ring_step_matches_step(rng):
+    """Pipeline.ring_step must produce the exact per-block outputs of the
+    staged step loop — same carried tail, same dither key schedule — while
+    leaving the other output-ring slots untouched."""
     import dataclasses
 
     import jax.numpy as jnp
 
-    from afp_tpu.ops.pallas.fir_td import split_bf16
-
     base = make_cfg(
         blocksize=512, upsample_factor=2, numtaps=65, batch=4,
         eq_enabled=True, conv_strategy="td_mxu", output_clip=0.5,
-        ingest="pair",
     )
     sig = (rng.normal(size=(3, 4, 512)) * 0.4).astype(np.float32)
 
     p = Pipeline(base)
     assert p.supports_ring_step
     pp = p.device_params(PipelineParams.design(p.cfg))
-
-    # reference: classic pair-ingest step loop
     st = p.init_state(seed=3)
     ref = []
     for b in sig:
-        st, y = p._step_impl(pp, st, split_bf16(jnp.asarray(b)))
+        st, y = p._step_impl(pp, st, jnp.asarray(b))
         ref.append(np.asarray(y))
 
-    # ring mode: same blocks resident as a ring, processed slot by slot
-    rh, rl = split_bf16(jnp.asarray(sig))
+    ring = jnp.asarray(sig)
     out_ring = jnp.full(sig.shape, 9.0, jnp.float32)
     st2 = p.init_state(seed=3)
     for i in range(sig.shape[0]):
-        st2, out_ring = p._ring_step_impl(pp, st2, rh, rl, i, out_ring)
+        st2, out_ring = p._ring_step_impl(pp, st2, ring, i, out_ring)
         got = np.asarray(out_ring)
         np.testing.assert_array_equal(got[i], ref[i])
-        # later slots still hold the sentinel
-        assert np.all(got[i + 1:] == 9.0)
-    # carried tails agree bit-for-bit after the full pass
-    np.testing.assert_array_equal(np.asarray(st.conv_tail[0]),
-                                  np.asarray(st2.conv_tail[0]))
-    np.testing.assert_array_equal(np.asarray(st.conv_tail[1]),
-                                  np.asarray(st2.conv_tail[1]))
+        assert np.all(got[i + 1:] == 9.0)  # later slots hold the sentinel
+    np.testing.assert_array_equal(np.asarray(st.conv_tail),
+                                  np.asarray(st2.conv_tail))
 
-    # dither on: the ring path must reproduce the classic key schedule
+    # dither on: the ring path reproduces the staged key schedule
     cfgd = dataclasses.replace(base, dither_kind="tpdf", output_clip=None)
     pd = Pipeline(cfgd)
+    ppd = pd.device_params(PipelineParams.design(pd.cfg))
     std = pd.init_state(seed=7)
     refd = []
     for b in sig:
-        std, y = pd._step_impl(
-            pd.device_params(PipelineParams.design(pd.cfg)), std,
-            split_bf16(jnp.asarray(b)))
+        std, y = pd._step_impl(ppd, std, jnp.asarray(b))
         refd.append(np.asarray(y))
-    ppd = pd.device_params(PipelineParams.design(pd.cfg))
     std2 = pd.init_state(seed=7)
     ringd = jnp.zeros(sig.shape, jnp.float32)
     for i in range(sig.shape[0]):
-        std2, ringd = pd._ring_step_impl(ppd, std2, rh, rl, i, ringd)
+        std2, ringd = pd.ring_step(ppd, std2, ring, i, ringd)
     np.testing.assert_array_equal(np.asarray(ringd), np.stack(refd))
 
 
-def test_agc_ring_step_matches_step(rng, monkeypatch):
-    """The fused-AGC serving-ring form (single f32 input ring, ring-input
-    RMS/apply kernels, ring-output conv) must be bit-identical to the
-    classic fused AGC step across carried blocks — the C8 chain with zero
-    staging copies."""
+def test_agc_ring_step_matches_step(rng):
+    """The AGC chain's serving-ring form must be bit-identical to the staged
+    AGC step across carried blocks (the C8 chain)."""
     import jax.numpy as jnp
-
-    monkeypatch.setenv("AFP_AGC_FUSED_FORCE", "1")
     cfg = make_cfg(
-        blocksize=256, upsample_factor=2, numtaps=33, batch=1024,
+        blocksize=256, upsample_factor=2, numtaps=33, batch=16,
         eq_enabled=True, agc_enabled=True, agc_mode="exact",
         agc_window_size=64, agc_carry=True, dither_kind="tpdf",
         output_clip=0.99, conv_strategy="td_mxu",
     )
-    sig = (rng.normal(size=(3, 1024, 256)) * 0.1).astype(np.float32)
+    sig = (rng.normal(size=(3, 16, 256)) * 0.1).astype(np.float32)
 
     p = Pipeline(cfg)
-    assert p._conv_pair and not p._pair_ingest
     assert p.supports_ring_step
     pp = p.device_params(PipelineParams.design(p.cfg))
     st = p.init_state(seed=9)
@@ -357,303 +303,116 @@ def test_agc_ring_step_matches_step(rng, monkeypatch):
     out_ring = jnp.full(sig.shape, 3.0, jnp.float32)
     st2 = p.init_state(seed=9)
     for i in range(sig.shape[0]):
-        st2, out_ring = p._ring_step_impl(pp, st2, ring, None, i, out_ring)
+        st2, out_ring = p._ring_step_impl(pp, st2, ring, i, out_ring)
         got = np.asarray(out_ring)
         np.testing.assert_array_equal(got[i], ref[i])
         assert np.all(got[i + 1:] == 3.0)
     np.testing.assert_array_equal(np.asarray(st.agc_gain),
                                   np.asarray(st2.agc_gain))
-    np.testing.assert_array_equal(np.asarray(st.conv_tail[0]),
-                                  np.asarray(st2.conv_tail[0]))
+    np.testing.assert_array_equal(np.asarray(st.conv_tail),
+                                  np.asarray(st2.conv_tail))
     np.testing.assert_array_equal(np.asarray(st.key), np.asarray(st2.key))
 
-    # and through the one-dispatch serving scan (wraparound included)
+    # and through the one-dispatch serving scan
     st3 = p.init_state(seed=9)
     ring_out2 = jnp.zeros(sig.shape, jnp.float32)
-    st3, ring_out2 = p.run_ring(pp, st3, ring, None, ring_out2, 3)
+    st3, ring_out2 = p.run_ring(pp, st3, ring, ring_out2, 3)
     np.testing.assert_array_equal(np.asarray(ring_out2), np.stack(ref))
 
 
 def test_run_ring_matches_step_loop_with_wraparound(rng):
     """Pipeline.run_ring (one-dispatch serving scan) must equal the
-    per-step pair loop for n_steps > K (ring wraparound) and honor a
-    nonzero start offset."""
+    per-step loop for n_steps > K (ring wraparound), honor a nonzero start
+    offset, and leave a state a staged step can resume from."""
     import jax.numpy as jnp
-
-    from afp_tpu.ops.pallas.fir_td import split_bf16
 
     cfg = make_cfg(
         blocksize=512, upsample_factor=1, numtaps=65, batch=4,
-        conv_strategy="td_mxu", ingest="pair", dither_kind="off",
+        conv_strategy="td_mxu", dither_kind="off",
     )
     K, n_steps, start = 3, 5, 2
     sig = (rng.normal(size=(K, 4, 512)) * 0.4).astype(np.float32)
     p = Pipeline(cfg)
     pp = p.device_params(PipelineParams.design(p.cfg))
-    rh, rl = split_bf16(jnp.asarray(sig))
+    ring = jnp.asarray(sig)
 
-    # reference: classic pair step loop in ring order (start..start+n-1 mod K)
     st = p.init_state(seed=1)
     last = {}
     for i in range(n_steps):
         s = (start + i) % K
-        st, y = p._step_impl(pp, st, (rh[s], rl[s]))
+        st, y = p._step_impl(pp, st, ring[s])
         last[s] = np.asarray(y)  # out_ring keeps the LAST write per slot
 
     st2 = p.init_state(seed=1)
     out_ring = jnp.full(sig.shape, 5.0, jnp.float32)
-    st2, out_ring = p.run_ring(pp, st2, rh, rl, out_ring, n_steps,
+    st2, out_ring = p.run_ring(pp, st2, ring, out_ring, n_steps,
                                start=start)
     got = np.asarray(out_ring)
     for s, y in last.items():
         np.testing.assert_array_equal(got[s], y)
-    np.testing.assert_array_equal(np.asarray(st.conv_tail[0]),
-                                  np.asarray(st2.conv_tail[0]))
-
-
-def test_f32_ring_matches_staged(rng):
-    """The f32 conv serving ring (kernel splits in VMEM — the reference's
-    f32 input contract with zero-copy dispatch) must be bit-identical to
-    the staged step loop IN INTERPRET MODE (where the dot is not
-    chunked; on hardware the ring kernel's k_pad-padded band regroups
-    the fp32 accumulation vs the unpadded staged f32 kernel — a ≤ −110 dB
-    bound asserted by tools/hw_check.py, which also asserts hardware
-    bit-equality against the staged PAIR path, the ring's true geometry
-    twin): per-step, one-dispatch scan with wraparound, the megakernel
-    form, and a staged step resumed from ring-carried state (the
-    k_pad-wide tail)."""
-    import jax.numpy as jnp
-
-    cfg = make_cfg(blocksize=512, upsample_factor=2, numtaps=65, batch=4,
-                   conv_strategy="td_mxu", dither_kind="off",
-                   eq_enabled=True, output_clip=0.8)  # ingest stays 'f32'
-    K, n_steps, start = 3, 5, 2
-    sig = (rng.normal(size=(K, 4, 512)) * 0.4).astype(np.float32)
-    p = Pipeline(cfg)
-    assert p.supports_ring_step and not p._pair_ingest and not p._conv_pair
-    pp = p.device_params(PipelineParams.design(p.cfg))
-
-    # gold: classic staged f32 step loop in ring order
-    st = p.init_state(seed=1)
-    last = {}
-    for i in range(n_steps):
-        s = (start + i) % K
-        st, y = p._step_impl(pp, st, jnp.asarray(sig[s]))
-        last[s] = np.asarray(y)
-
-    ring = jnp.asarray(sig)
-    n_tail = st.conv_tail.shape[-1]
-
-    # per-step ring form
-    st1 = p.init_state(seed=1)
-    out1 = jnp.full(sig.shape, 5.0, jnp.float32)
-    for i in range(n_steps):
-        st1, out1 = p._ring_step_impl(pp, st1, ring, None,
-                                      (start + i) % K, out1)
-    for s, y in last.items():
-        np.testing.assert_array_equal(np.asarray(out1)[s], y)
-    np.testing.assert_array_equal(
-        np.asarray(st1.conv_tail)[:, -n_tail:], np.asarray(st.conv_tail))
-
-    # one-dispatch serving scan
-    st2 = p.init_state(seed=1)
-    out2 = jnp.full(sig.shape, 5.0, jnp.float32)
-    st2, out2 = p.run_ring(pp, st2, ring, None, out2, n_steps, start=start)
-    for s, y in last.items():
-        np.testing.assert_array_equal(np.asarray(out2)[s], y)
-    np.testing.assert_array_equal(
-        np.asarray(st2.conv_tail)[:, -n_tail:], np.asarray(st.conv_tail))
-
-    # megakernel form (incl. chunk-crossing launches)
-    import afp_tpu.engine.pipeline as plmod
-    orig = plmod.MEGA_CHUNK_STEPS
-    for chunk in (orig, 2):
-        plmod.MEGA_CHUNK_STEPS = chunk
-        try:
-            pm = Pipeline(cfg)
-            st3 = pm.init_state(seed=1)
-            out3 = jnp.full(sig.shape, 5.0, jnp.float32)
-            st3, out3 = pm.run_ring_mega(pp, st3, ring, None, out3, n_steps,
-                                         start=start)
-        finally:
-            plmod.MEGA_CHUNK_STEPS = orig
-        for s, y in last.items():
-            np.testing.assert_array_equal(np.asarray(out3)[s], y)
-        np.testing.assert_array_equal(
-            np.asarray(st3.conv_tail)[:, -n_tail:], np.asarray(st.conv_tail))
-
-    # staged step resumed from the ring's k_pad-wide tail state: the
-    # defensive tail slice must make it equal the all-staged continuation
+    np.testing.assert_array_equal(np.asarray(st.conv_tail),
+                                  np.asarray(st2.conv_tail))
     nxt = (rng.normal(size=(4, 512)) * 0.4).astype(np.float32)
     _, y_gold = p._step_impl(pp, st, jnp.asarray(nxt))
     _, y_ring = p._step_impl(pp, st2, jnp.asarray(nxt))
     np.testing.assert_array_equal(np.asarray(y_ring), np.asarray(y_gold))
 
-    # dithered form (interpret-mode post-kernel dither shares the staged
-    # path's key walk → still bit-identical)
+
+@pytest.mark.parametrize("strategy", ["td_mxu", "fft"])
+def test_f32_ring_matches_staged(rng, strategy):
+    """The f32 serving ring equals the staged step loop on both conv
+    strategies, dither off and on (the shared key walk)."""
     import dataclasses
-    dcfg = dataclasses.replace(cfg, dither_kind="tpdf")
-    pd = Pipeline(dcfg)
-    ppd = pd.device_params(PipelineParams.design(pd.cfg))
-    std = pd.init_state(seed=4)
-    lastd = {}
-    for i in range(n_steps):
-        s = (start + i) % K
-        std, y = pd._step_impl(ppd, std, jnp.asarray(sig[s]))
-        lastd[s] = np.asarray(y)
-    std2 = pd.init_state(seed=4)
-    outd = jnp.zeros(sig.shape, jnp.float32)
-    std2, outd = pd.run_ring(ppd, std2, ring, None, outd, n_steps,
-                             start=start)
-    for s, y in lastd.items():
-        np.testing.assert_array_equal(np.asarray(outd)[s], y)
-    np.testing.assert_array_equal(np.asarray(std2.key), np.asarray(std.key))
 
-
-def test_run_ring_mega_matches_run_ring(rng):
-    """The one-launch serving megakernel (`run_ring_mega`) must equal the
-    scan-of-ring-steps path — final ring, tail carry, slot wraparound, and
-    nonzero start offset — in interpret mode with dither off (the fused
-    dither epilogue is TPU-only; hw_check covers the dithered form)."""
-    import jax.numpy as jnp
-    import pytest as _pytest
-
-    from afp_tpu.ops.pallas.fir_td import split_bf16
-
-    cfg = make_cfg(
-        blocksize=512, upsample_factor=1, numtaps=65, batch=4,
-        conv_strategy="td_mxu", ingest="pair", dither_kind="off",
-        eq_enabled=True, output_clip=0.8,
-    )
-    K = 3
-    sig = (rng.normal(size=(K, 4, 512)) * 0.4).astype(np.float32)
-    p = Pipeline(cfg)
-    pp = p.device_params(PipelineParams.design(p.cfg))
-    rh, rl = split_bf16(jnp.asarray(sig))
-    for n_steps, start in ((3, 0), (5, 2)):  # exact cover + wraparound
-        st = p.init_state(seed=1)
-        ring = jnp.full(sig.shape, 5.0, jnp.float32)
-        st, ring = p.run_ring(pp, st, rh, rl, ring, n_steps, start=start)
-        st2 = p.init_state(seed=1)
-        ring2 = jnp.full(sig.shape, 5.0, jnp.float32)
-        st2, ring2 = p.run_ring_mega(pp, st2, rh, rl, ring2, n_steps,
-                                     start=start)
-        np.testing.assert_array_equal(np.asarray(ring2), np.asarray(ring))
-        np.testing.assert_array_equal(np.asarray(st.conv_tail[0]),
-                                      np.asarray(st2.conv_tail[0]))
-        np.testing.assert_array_equal(np.asarray(st.conv_tail[1]),
-                                      np.asarray(st2.conv_tail[1]))
-
-    # k_pad > T regime: tail wider than the block — the in-kernel carry
-    # stitches old-tail and block columns across steps
-    wcfg = make_cfg(blocksize=128, upsample_factor=1, numtaps=385, batch=4,
-                    conv_strategy="td_mxu", ingest="pair", dither_kind="off",
-                    eq_enabled=False)
-    pw = Pipeline(wcfg)
-    assert pw._k_pad > pw.block
-    ppw = pw.device_params(PipelineParams.design(pw.cfg))
-    sigw = (rng.normal(size=(K, 4, 128)) * 0.4).astype(np.float32)
-    rhw, rlw = split_bf16(jnp.asarray(sigw))
-    stw = pw.init_state(seed=2)
-    ringw = jnp.zeros(sigw.shape, jnp.float32)
-    stw, ringw = pw.run_ring(ppw, stw, rhw, rlw, ringw, 5, start=0)
-    ringw2 = jnp.zeros(sigw.shape, jnp.float32)
-    stw2, ringw2 = pw.run_ring_mega(ppw, pw.init_state(seed=2), rhw, rlw,
-                                    ringw2, 5, start=0)
-    np.testing.assert_array_equal(np.asarray(ringw2), np.asarray(ringw))
-    np.testing.assert_array_equal(np.asarray(stw.conv_tail[0]),
-                                  np.asarray(stw2.conv_tail[0]))
-
-    # interpret mode + dither on → clean rejection (no silent numerics gap)
-    dcfg = make_cfg(blocksize=512, upsample_factor=1, numtaps=65, batch=4,
-                    conv_strategy="td_mxu", ingest="pair",
-                    dither_kind="tpdf")
-    pd = Pipeline(dcfg)
-    ppd = pd.device_params(PipelineParams.design(pd.cfg))
-    with _pytest.raises(ValueError, match="fused dither"):
-        pd.run_ring_mega(ppd, pd.init_state(seed=0), rh, rl,
-                         jnp.zeros(sig.shape, jnp.float32), K)
-
-
-def test_run_ring_mega_chunked_launches(rng, monkeypatch):
-    """n_steps > MEGA_CHUNK_STEPS chains multiple mega launches, carrying
-    the VMEM tail between them — output and tail must stay bit-identical
-    to the per-step ring scan (the SMEM-cap workaround: Mosaic's fixed
-    footprint leaves no room for a long scalar-prefetch seed array)."""
     import jax.numpy as jnp
 
-    import afp_tpu.engine.pipeline as plmod
-    from afp_tpu.ops.pallas.fir_td import split_bf16
-
-    monkeypatch.setattr(plmod, "MEGA_CHUNK_STEPS", 2)
-    cfg = make_cfg(blocksize=512, upsample_factor=1, numtaps=65, batch=4,
-                   conv_strategy="td_mxu", ingest="pair", dither_kind="off",
+    cfg = make_cfg(blocksize=512, upsample_factor=2, numtaps=65, batch=4,
+                   conv_strategy=strategy, dither_kind="off",
                    eq_enabled=True, output_clip=0.8)
-    K = 3
+    K, n_steps, start = 3, 5, 2
     sig = (rng.normal(size=(K, 4, 512)) * 0.4).astype(np.float32)
-    p = Pipeline(cfg)
-    pp = p.device_params(PipelineParams.design(p.cfg))
-    rh, rl = split_bf16(jnp.asarray(sig))
-    # 5 steps at chunk 2 → 3 launches (2+2+1), with slot wraparound and a
-    # nonzero start crossing chunk boundaries
-    st = p.init_state(seed=1)
-    ring = jnp.full(sig.shape, 5.0, jnp.float32)
-    st, ring = p.run_ring(pp, st, rh, rl, ring, 5, start=2)
-    st2 = p.init_state(seed=1)
-    ring2 = jnp.full(sig.shape, 5.0, jnp.float32)
-    st2, ring2 = p.run_ring_mega(pp, st2, rh, rl, ring2, 5, start=2)
-    np.testing.assert_array_equal(np.asarray(ring2), np.asarray(ring))
-    np.testing.assert_array_equal(np.asarray(st.conv_tail[0]),
-                                  np.asarray(st2.conv_tail[0]))
-    np.testing.assert_array_equal(np.asarray(st.conv_tail[1]),
-                                  np.asarray(st2.conv_tail[1]))
+    ring = jnp.asarray(sig)
+    for dither in ("off", "tpdf"):
+        p = Pipeline(dataclasses.replace(cfg, dither_kind=dither))
+        pp = p.device_params(PipelineParams.design(p.cfg))
+        st = p.init_state(seed=4)
+        last = {}
+        for i in range(n_steps):
+            s = (start + i) % K
+            st, y = p._step_impl(pp, st, jnp.asarray(sig[s]))
+            last[s] = np.asarray(y)
+        st2 = p.init_state(seed=4)
+        out = jnp.zeros(sig.shape, jnp.float32)
+        st2, out = p.run_ring(pp, st2, ring, out, n_steps, start=start)
+        for s, y in last.items():
+            np.testing.assert_array_equal(np.asarray(out)[s], y)
+        np.testing.assert_array_equal(np.asarray(st2.key),
+                                      np.asarray(st.key))
 
 
-def test_pair_ingest_engine_accepts_and_bad_configs_reject():
-    """StreamEngine accepts ingest='pair' since the engine-level pair
-    ladder landed (r3); the config-level incompatibilities still raise."""
+def test_pair_ingest_rejected():
+    """The bf16 pair ingest is gone: 'pair' is an invalid ingest."""
     import dataclasses
 
-    import pytest as _pytest
-
-    from afp_tpu.engine import StreamEngine
-
-    cfg = make_cfg(conv_strategy="td_mxu", ingest="pair",
-                   blocksize=512, upsample_factor=1, batch=4)
-    eng = StreamEngine(cfg)  # no longer rejected — full ladder on pair
-    assert eng.cfg.ingest == "pair"
-    with _pytest.raises(ValueError, match="conv_strategy"):
-        dataclasses.replace(cfg, conv_strategy="fft").validate()
-    with _pytest.raises(ValueError, match="agc"):
-        dataclasses.replace(cfg, agc_enabled=True).validate()
-
-
-def test_pair_ingest_upsampled_output_rejected():
-    import dataclasses
-
-    import pytest as _pytest
-
-    cfg = make_cfg(conv_strategy="td_mxu", ingest="pair", blocksize=512,
-                   upsample_factor=2, batch=4)
-    with _pytest.raises(ValueError, match="output_rate"):
-        dataclasses.replace(cfg, output_rate="upsampled").validate()
+    cfg = make_cfg(conv_strategy="td_mxu", blocksize=512, batch=4)
+    with pytest.raises(ValueError, match="invalid ingest"):
+        dataclasses.replace(cfg, ingest="pair").validate()
 
 
 def test_f32_ring_kpad_wider_than_block(rng):
-    """f32 conv ring in the k_pad > T regime (tail wider than the block):
-    the in-kernel f32 tail carry stitches old-tail and block columns
-    across steps — per-step ring, scan, and megakernel must all match the
-    staged step loop (bit-exact in interpret mode)."""
+    """Overlap tail wider than the block (n_casc − 1 > T): the carried
+    history stitches old-tail and block columns across steps — the ring
+    scan must match the staged step loop bit-exactly."""
     import jax.numpy as jnp
 
-    cfg = make_cfg(blocksize=128, upsample_factor=1, numtaps=385, batch=4,
+    cfg = make_cfg(blocksize=256, upsample_factor=1, numtaps=385, batch=4,
                    conv_strategy="td_mxu", dither_kind="off",
-                   eq_enabled=False)  # ingest stays 'f32'
+                   eq_enabled=False)
     p = Pipeline(cfg)
-    assert p._k_pad > p.block and p.supports_ring_step
+    assert p.n_casc - 1 > p.block and p.supports_ring_step
     pp = p.device_params(PipelineParams.design(p.cfg))
     K, n_steps = 3, 5
-    sig = (rng.normal(size=(K, 4, 128)) * 0.4).astype(np.float32)
+    sig = (rng.normal(size=(K, 4, 256)) * 0.4).astype(np.float32)
 
     st = p.init_state(seed=2)
     last = {}
@@ -661,45 +420,33 @@ def test_f32_ring_kpad_wider_than_block(rng):
         s = i % K
         st, y = p._step_impl(pp, st, jnp.asarray(sig[s]))
         last[s] = np.asarray(y)
-    n_tail = st.conv_tail.shape[-1]
 
-    ring = jnp.asarray(sig)
-    st1 = p.init_state(seed=2)
-    out1 = jnp.zeros(sig.shape, jnp.float32)
-    st1, out1 = p.run_ring(pp, st1, ring, None, out1, n_steps)
+    st1, out1 = p.run_ring(pp, p.init_state(seed=2), jnp.asarray(sig),
+                           jnp.zeros(sig.shape, jnp.float32), n_steps)
     for s, y in last.items():
         np.testing.assert_array_equal(np.asarray(out1)[s], y)
-    np.testing.assert_array_equal(
-        np.asarray(st1.conv_tail)[:, -n_tail:], np.asarray(st.conv_tail))
-
-    out2 = jnp.zeros(sig.shape, jnp.float32)
-    st2, out2 = p.run_ring_mega(pp, p.init_state(seed=2), ring, None,
-                                out2, n_steps)
-    for s, y in last.items():
-        np.testing.assert_array_equal(np.asarray(out2)[s], y)
-    np.testing.assert_array_equal(
-        np.asarray(st2.conv_tail)[:, -n_tail:], np.asarray(st.conv_tail))
+    np.testing.assert_array_equal(np.asarray(st1.conv_tail),
+                                  np.asarray(st.conv_tail))
 
 
 def test_run_ring_misuse_raises_descriptive_errors():
-    """Regression (r3 review): _run_ring_impl's f32-tail pad branch used to
-    run before any form validation, turning the intended ValueErrors into
-    AttributeErrors (tuple conv_tail / missing _k_pad)."""
+    """Ring dtype and capability mismatches raise descriptive ValueErrors."""
     import jax.numpy as jnp
 
     ring = jnp.zeros((3, 4, 256), jnp.float32)
     out = jnp.zeros((3, 4, 256), jnp.float32)
 
     cfg = make_cfg(blocksize=256, upsample_factor=1, batch=4,
-                   conv_strategy="td_mxu", eq_enabled=False, ingest="pair")
+                   conv_strategy="td_mxu", eq_enabled=False, ingest="pcm16")
     p = Pipeline(cfg)
     pp = p.device_params(PipelineParams.design(p.cfg))
-    with pytest.raises(ValueError, match="ring form mismatch"):
-        p.run_ring(pp, p.init_state(seed=0), ring, None, out, 2)
+    with pytest.raises(ValueError, match="int16"):
+        p.run_ring(pp, p.init_state(seed=0), ring, out, 2)
 
     cfg2 = make_cfg(blocksize=256, upsample_factor=1, batch=4,
-                    conv_strategy="fft", eq_enabled=False)
+                    conv_strategy="fft", eq_enabled=False,
+                    waterfall_enabled=True)
     p2 = Pipeline(cfg2)
     pp2 = p2.device_params(PipelineParams.design(p2.cfg))
     with pytest.raises(ValueError, match="ring_step requires"):
-        p2.run_ring(pp2, p2.init_state(seed=0), ring, None, out, 2)
+        p2.run_ring(pp2, p2.init_state(seed=0), ring, out, 2)

@@ -3,7 +3,7 @@ evidence for the judge; configs cited per engine generation)."""
 import numpy as np
 import pytest
 
-from afp_tpu.engine import Pipeline, PipelineParams, StreamConfig, StreamEngine
+from afp.engine import Pipeline, PipelineParams, StreamConfig, StreamEngine
 
 
 def test_c5_baseline_operating_point(rng):
@@ -107,7 +107,7 @@ def test_config_clamp_extremes_full_chain(rng, strategy):
     """The validated config space's hardest corner: minimum blocksize (256)
     with maximum numtaps (2048), 4x upsample, EQ + AGC + dither + clip —
     the filter tail dwarfs the block on every path."""
-    from afp_tpu.engine import Pipeline, PipelineParams, StreamConfig
+    from afp.engine import Pipeline, PipelineParams, StreamConfig
 
     cfg = StreamConfig(
         samplerate=44100, blocksize=256, upsample_factor=4, numtaps=2048,

@@ -3,7 +3,7 @@ import numpy as np
 import pytest
 import scipy.signal as sps
 
-from afp_tpu.design import create_fir_filter, design_fir_filter, remez
+from afp.design import create_fir_filter, design_fir_filter, remez
 
 
 def response_error_db(h_ours, h_gold, bands_hz, fs):
@@ -116,7 +116,7 @@ def test_remez_raises_on_nonconvergence():
     converge') instead of silently returning a non-minimax filter."""
     import pytest
 
-    from afp_tpu.design import RemezError, remez
+    from afp.design import RemezError, remez
 
     with pytest.raises(RemezError, match="converge"):
         remez(65, [0.0, 0.2, 0.3, 0.5], [1.0, 0.0], maxiter=0)

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import scipy.signal as sps
 
-from afp_tpu.ops import (
+from afp.ops import (
     PolyResampler,
     decimate,
     design_resample_kernel,
@@ -127,7 +127,7 @@ _TIER_SPECS = {
 def test_quality_tier_stopbands(quality, up):
     """Each published tier kernel must meet its documented anti-image
     stopband and passband-ripple class (measured on a 2^17-point grid)."""
-    from afp_tpu.ops.resample import quality_kernel
+    from afp.ops.resample import quality_kernel
 
     trans, sb_req, pb_req = _TIER_SPECS[quality]
     h = quality_kernel(up, 1, quality)
@@ -142,14 +142,14 @@ def test_quality_tier_stopbands(quality, up):
 
 def test_quality_fast_is_scipy_default():
     """'fast' IS the scipy resample_poly recipe (oracle compatibility)."""
-    from afp_tpu.ops.resample import quality_kernel
+    from afp.ops.resample import quality_kernel
 
     np.testing.assert_array_equal(quality_kernel(4, 1, "fast"),
                                   design_resample_kernel(4, 1))
 
 
 def test_quality_unknown_raises():
-    from afp_tpu.ops.resample import quality_kernel
+    from afp.ops.resample import quality_kernel
 
     with pytest.raises(ValueError, match="unknown resample quality"):
         quality_kernel(4, 1, "ultra")
@@ -174,7 +174,7 @@ def test_quality_streaming_equals_oneshot(rng, quality):
 def test_quality_resample_matches_scipy_recipe(rng, quality):
     """resample_poly(quality=t) ≡ scipy resample_poly with the tier's
     published (half_len_mult, β) window — the tier recipes are open."""
-    from afp_tpu.ops.resample import QUALITY_TIERS
+    from afp.ops.resample import QUALITY_TIERS
 
     mult, beta = QUALITY_TIERS[quality]
     x = rng.normal(size=4096).astype(np.float32)
@@ -193,8 +193,8 @@ def test_quality_tier_in_engine(rng):
     the fast-tier output (the knob is live)."""
     import dataclasses
 
-    from afp_tpu.engine import Pipeline, PipelineParams, StreamConfig
-    from afp_tpu.ops.resample import streaming_kernel
+    from afp.engine import Pipeline, PipelineParams, StreamConfig
+    from afp.ops.resample import streaming_kernel
 
     sig = (rng.normal(size=(1, 2048)) * 0.3).astype(np.float32)
     outs = {}

@@ -3,8 +3,8 @@ injection, latency behavior (SURVEY.md §4 item 5, §5.3)."""
 import numpy as np
 import pytest
 
-from afp_tpu.engine import StreamConfig, StreamEngine
-from afp_tpu.runtime import (
+from afp.engine import StreamConfig, StreamEngine
+from afp.runtime import (
     BlockRing,
     FaultInjector,
     Pacer,
@@ -69,7 +69,7 @@ def test_framer_int16_never_coerces_floats():
     """An int16 framer must reject float chunks — np.asarray would
     truncate [-1, 1] floats to all-zero silence (review fix; the same
     contract as BlockRing.push / StreamEngine._coerce_in)."""
-    from afp_tpu.runtime.framer import BlockFramer
+    from afp.runtime.framer import BlockFramer
 
     f = BlockFramer(1, dtype=np.int16)
     with pytest.raises(ValueError, match="framer carries"):
@@ -171,7 +171,7 @@ def test_asrc_frontend_exact_streaming(rng):
     upfirdn of the whole source signal (no per-block edge artifacts)."""
     import scipy.signal as sps
 
-    from afp_tpu.runtime.asrc import AsrcFrontend
+    from afp.runtime.asrc import AsrcFrontend
 
     src_rate, eng_rate = 48000, 44100
     fe = AsrcFrontend(src_rate, eng_rate, batch=1)
@@ -198,7 +198,7 @@ def test_asrc_frontend_exact_streaming(rng):
 
 
 def test_asrc_frontend_rate_bookkeeping():
-    from afp_tpu.runtime.asrc import AsrcFrontend
+    from afp.runtime.asrc import AsrcFrontend
 
     fe = AsrcFrontend(48000, 44100, batch=2)
     fe.push(np.zeros((2, fe.l_dev * 2), np.float32))
@@ -212,7 +212,7 @@ def test_asrc_frontend_flush_drains_group_delay(rng):
     real audio — padding only to the super-block boundary left them stuck
     in the filter history (and an exactly-aligned residual got no padding
     at all)."""
-    from afp_tpu.runtime.asrc import AsrcFrontend
+    from afp.runtime.asrc import AsrcFrontend
 
     fe = AsrcFrontend(48000, 44100, batch=1)
     T = fe.l_dev  # EXACTLY one super-block: the old flush pushed nothing

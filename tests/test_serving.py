@@ -1,11 +1,11 @@
-"""RingServer (zero-copy serving-ring host pump) tests: ordered,
+"""RingServer (serving-ring host pump) tests: ordered,
 bit-exact equivalence with the classic scan path, tail handling, and
 constructor validation."""
 import numpy as np
 import pytest
 
-from afp_tpu.engine import Pipeline, PipelineParams, StreamConfig
-from afp_tpu.runtime import RingServer
+from afp.engine import Pipeline, PipelineParams, StreamConfig
+from afp.runtime import RingServer
 
 #: heavy suite — excluded from the fast pass (docs/TESTING.md tiering);
 #: run the FULL suite before committing kernel/engine changes
@@ -20,7 +20,7 @@ def make_cfg(**kw):
         batch=2, filter_type="lowpass", cutoff=11000.0,
         window_type="hamming", eq_enabled=False, agc_enabled=False,
         downsample_mode="decimate", dither_kind="tpdf", output_clip=None,
-        conv_strategy="td_mxu", ingest="pair",
+        conv_strategy="td_mxu", ingest="f32",
     )
     base.update(kw)
     return StreamConfig(**base)
@@ -40,57 +40,25 @@ def test_ring_server_matches_run(rng):
     blocks = (rng.normal(size=(n, cfg.batch, cfg.blocksize)) * 0.4
               ).astype(np.float32)
 
-    from afp_tpu.ops.pallas.fir_td import split_bf16
-
     st, gold = pipe.run(params, pipe.init_state(seed=5),
-                        split_bf16(jnp.asarray(blocks)))
+                        jnp.asarray(blocks))
 
     srv = RingServer(pipe, params, slots=8, chunk=2, max_inflight=2, seed=5)
     outs = list(srv.stream(iter(blocks)))
     assert len(outs) == n and srv.blocks_served == n
     np.testing.assert_array_equal(np.stack(outs), np.asarray(gold))
     # carried state matches the classic path bit-for-bit
-    np.testing.assert_array_equal(np.asarray(st.conv_tail[0]),
-                                  np.asarray(srv.state.conv_tail[0]))
+    np.testing.assert_array_equal(np.asarray(st.conv_tail),
+                                  np.asarray(srv.state.conv_tail))
     np.testing.assert_array_equal(np.asarray(st.key),
                                   np.asarray(srv.state.key))
 
 
-def test_ring_server_mega_matches_run(rng):
-    """RingServer(mega=True) dispatches through the one-launch serving
-    megakernel — outputs and carried tail must stay bit-identical to
-    Pipeline.run (dither off: the fused epilogue is TPU-only).  mega with
-    the f32 AGC ring form or interpret+dither must be rejected."""
-    import jax.numpy as jnp
-
-    from afp_tpu.ops.pallas.fir_td import split_bf16
-
-    cfg = make_cfg(dither_kind="off", eq_enabled=True, output_clip=0.9)
-    pipe = Pipeline(cfg)
-    params = pipe.device_params(PipelineParams.design(pipe.cfg))
-    n = 7
-    blocks = (rng.normal(size=(n, cfg.batch, cfg.blocksize)) * 0.4
-              ).astype(np.float32)
-    st, gold = pipe.run(params, pipe.init_state(seed=5),
-                        split_bf16(jnp.asarray(blocks)))
-    srv = RingServer(pipe, params, slots=8, chunk=2, max_inflight=2, seed=5,
-                     mega=True)
-    outs = list(srv.stream(iter(blocks)))
-    assert len(outs) == n and srv.blocks_served == n
-    np.testing.assert_array_equal(np.stack(outs), np.asarray(gold))
-    np.testing.assert_array_equal(np.asarray(st.conv_tail[0]),
-                                  np.asarray(srv.state.conv_tail[0]))
-
-    with pytest.raises(ValueError, match="dither"):
-        RingServer(Pipeline(make_cfg()), slots=8, chunk=2, mega=True)
-
-
 def test_ring_server_pair_source_and_serve_metrics(rng):
-    """A source yielding pre-split (hi, lo) pairs is accepted; serve()
-    reports block count and a finite xRT."""
+    """A source of device-resident blocks is accepted (the bf16 pair
+    source this once covered is gone); serve() reports block count and a
+    finite xRT."""
     import jax.numpy as jnp
-
-    from afp_tpu.ops.pallas.fir_td import split_bf16
 
     cfg = make_cfg(dither_kind="off")
     pipe = Pipeline(cfg)
@@ -99,12 +67,12 @@ def test_ring_server_pair_source_and_serve_metrics(rng):
     blocks = (rng.normal(size=(n, cfg.batch, cfg.blocksize)) * 0.4
               ).astype(np.float32)
     _, gold = pipe.run(params, pipe.init_state(),
-                       split_bf16(jnp.asarray(blocks)))
+                       jnp.asarray(blocks))
 
     srv = RingServer(pipe, params, slots=8, chunk=2, max_inflight=1)
-    pair_src = (split_bf16(jnp.asarray(b)) for b in blocks)
+    dev_src = (jnp.asarray(b) for b in blocks)
     got = []
-    m = srv.serve(pair_src, got.append)
+    m = srv.serve(dev_src, got.append)
     assert m["blocks"] == n and np.isfinite(m["xrt"]) and m["xrt"] > 0
     np.testing.assert_array_equal(np.stack(got), np.asarray(gold))
     lat = m["latency"]
@@ -113,50 +81,41 @@ def test_ring_server_pair_source_and_serve_metrics(rng):
 
 
 def test_ring_server_f32_conv_ring_matches_run(rng):
-    """RingServer over the f32 conv ring (single f32 ring, no AGC — the
-    reference's f32 input contract with zero-copy dispatch) must be
-    bit-identical to Pipeline.run, in both dispatch modes (run_ring and
-    the serving megakernel)."""
+    """RingServer over the f32 ring (no AGC — the reference's f32 input
+    contract) must be bit-identical to Pipeline.run."""
     import jax.numpy as jnp
 
     cfg = make_cfg(ingest="f32", upsample_factor=2, numtaps=65,
                    eq_enabled=True, output_clip=0.9, dither_kind="off")
     pipe = Pipeline(cfg)
     assert pipe.supports_ring_step
-    assert not pipe._pair_ingest and not pipe._conv_pair
     params = pipe.device_params(PipelineParams.design(pipe.cfg))
     n = 7
     blocks = (rng.normal(size=(n, cfg.batch, cfg.blocksize)) * 0.4
               ).astype(np.float32)
     st, gold = pipe.run(params, pipe.init_state(seed=3),
                         jnp.asarray(blocks))
-    for mega in (False, True):
-        srv = RingServer(pipe, params, slots=8, chunk=2, max_inflight=2,
-                         seed=3, mega=mega)
-        assert not srv.pair
-        outs = list(srv.stream(iter(blocks)))
-        assert len(outs) == n
-        np.testing.assert_array_equal(np.stack(outs), np.asarray(gold))
-        n_tail = st.conv_tail.shape[-1]
-        np.testing.assert_array_equal(
-            np.asarray(srv.state.conv_tail)[:, -n_tail:],
-            np.asarray(st.conv_tail))
+    srv = RingServer(pipe, params, slots=8, chunk=2, max_inflight=2, seed=3)
+    assert not srv.pcm16
+    outs = list(srv.stream(iter(blocks)))
+    assert len(outs) == n
+    np.testing.assert_array_equal(np.stack(outs), np.asarray(gold))
+    np.testing.assert_array_equal(np.asarray(srv.state.conv_tail),
+                                  np.asarray(st.conv_tail))
 
 
 def test_ring_server_agc_chain_matches_run(rng, monkeypatch):
-    """RingServer over the fused AGC chain (single f32 ring) must be
-    bit-identical to Pipeline.run — the C8 serving mode."""
+    """RingServer over the AGC chain (f32 ring) must be bit-identical to
+    Pipeline.run — the C8 serving mode."""
     import jax.numpy as jnp
-
-    monkeypatch.setenv("AFP_AGC_FUSED_FORCE", "1")
     cfg = make_cfg(
         ingest="f32", blocksize=256, upsample_factor=2, numtaps=33,
-        batch=1024, eq_enabled=True, agc_enabled=True, agc_mode="exact",
+        batch=16, eq_enabled=True, agc_enabled=True, agc_mode="exact",
         agc_window_size=64, agc_carry=True, dither_kind="tpdf",
         output_clip=0.99,
     )
     pipe = Pipeline(cfg)
-    assert pipe._conv_pair and pipe.supports_ring_step
+    assert pipe.supports_ring_step
     params = pipe.device_params(PipelineParams.design(pipe.cfg))
     n = 5
     blocks = (rng.normal(size=(n, cfg.batch, cfg.blocksize)) * 0.1
@@ -165,7 +124,6 @@ def test_ring_server_agc_chain_matches_run(rng, monkeypatch):
                         jnp.asarray(blocks))
 
     srv = RingServer(pipe, params, slots=8, chunk=2, max_inflight=2, seed=4)
-    assert not srv.pair
     outs = list(srv.stream(iter(blocks)))
     np.testing.assert_array_equal(np.stack(outs), np.asarray(gold))
     np.testing.assert_array_equal(np.asarray(st.agc_gain),
@@ -176,11 +134,9 @@ def test_ring_server_sharded_pipeline(rng):
     """RingServer drives a ShardedPipeline unchanged (the multi-chip
     serving surface): rings placed with the published ring_sharding,
     outputs and carried tail bit-identical to ShardedPipeline.run —
-    including the per-shard dither key folds — in both dispatch modes."""
+    including the per-shard dither key folds."""
     import jax.numpy as jnp
-
-    from afp_tpu.ops.pallas.fir_td import split_bf16
-    from afp_tpu.parallel import ShardedPipeline, make_mesh
+    from afp.parallel import ShardedPipeline, make_mesh
 
     cfg = make_cfg(batch=4)
     sp = ShardedPipeline(cfg, make_mesh(2, axis_names=("streams",)))
@@ -189,24 +145,14 @@ def test_ring_server_sharded_pipeline(rng):
     blocks = (rng.normal(size=(n, cfg.batch, cfg.blocksize)) * 0.4
               ).astype(np.float32)
     st, gold = sp.run(params, sp.init_state(seed=5),
-                      split_bf16(jnp.asarray(blocks)))
+                      jnp.asarray(blocks))
     srv = RingServer(sp, params, slots=8, chunk=2, max_inflight=2, seed=5)
     outs = list(srv.stream(iter(blocks)))
     assert len(outs) == n
     np.testing.assert_array_equal(np.stack(outs), np.asarray(gold))
-    np.testing.assert_array_equal(np.asarray(st.conv_tail[0]),
-                                  np.asarray(srv.state.conv_tail[0]))
+    np.testing.assert_array_equal(np.asarray(st.conv_tail),
+                                  np.asarray(srv.state.conv_tail))
 
-    # megakernel dispatch over the mesh (dither off: fused epilogue is
-    # TPU-only)
-    mcfg = make_cfg(batch=4, dither_kind="off")
-    spm = ShardedPipeline(mcfg, make_mesh(2, axis_names=("streams",)))
-    mparams = spm.device_params(PipelineParams.design(spm.cfg))
-    _, mgold = spm.run(mparams, spm.init_state(seed=5),
-                       split_bf16(jnp.asarray(blocks)))
-    msrv = RingServer(spm, mparams, slots=8, chunk=2, seed=5, mega=True)
-    mouts = list(msrv.stream(iter(blocks)))
-    np.testing.assert_array_equal(np.stack(mouts), np.asarray(mgold))
 
 
 def test_ring_server_validation():
@@ -216,18 +162,17 @@ def test_ring_server_validation():
         RingServer(pipe, slots=8, chunk=3)
     with pytest.raises(ValueError, match="undrained"):
         RingServer(pipe, slots=8, chunk=4, max_inflight=2)
-    f32 = Pipeline(make_cfg(ingest="f32", dither_kind="off",
-                            conv_strategy="fft"))
+    wf = Pipeline(make_cfg(dither_kind="off", conv_strategy="fft",
+                           waterfall_enabled=True))
     with pytest.raises(ValueError, match="ring-capable"):
-        RingServer(f32)
+        RingServer(wf)
 
 
 # ---------------------------------------------------------------- live reconfig
 
 
-@pytest.mark.parametrize("mega", [False, True])
-def test_swap_params_mid_stream(rng, mega):
-    """`swap_params` mid-stream (VERDICT r4 #1): chunk-boundary atomic
+def test_swap_params_mid_stream(rng):
+    """`swap_params` mid-stream: chunk-boundary atomic
     transition with ZERO dropped or blended blocks — pre-swap blocks
     bit-match a params-A run, post-swap blocks bit-match a params-B
     continuation (the carried conv tail is pure input history, so the
@@ -236,11 +181,7 @@ def test_swap_params_mid_stream(rng, mega):
 
     import jax.numpy as jnp
 
-    from afp_tpu.ops.pallas.fir_td import split_bf16
-
-    # mega off-TPU needs dither off (no interpret lowering for the fused
-    # dither epilogue); the non-mega leg keeps tpdf to cover the key walk
-    cfg = make_cfg(dither_kind="off") if mega else make_cfg()
+    cfg = make_cfg()  # tpdf: the key walk is covered too
     pipe = Pipeline(cfg)
     pa = pipe.device_params(PipelineParams.design(pipe.cfg))
     cfg_b = dataclasses.replace(cfg, cutoff=5500.0,
@@ -250,15 +191,14 @@ def test_swap_params_mid_stream(rng, mega):
     blocks = (rng.normal(size=(n, cfg.batch, cfg.blocksize)) * 0.4
               ).astype(np.float32)
     st_a, gold_a = pipe.run(pa, pipe.init_state(seed=5),
-                            split_bf16(jnp.asarray(blocks[:swap_at])))
+                            jnp.asarray(blocks[:swap_at]))
     st_b, gold_b = pipe.run(pb, st_a,
-                            split_bf16(jnp.asarray(blocks[swap_at:])))
+                            jnp.asarray(blocks[swap_at:]))
     # the two banks genuinely differ — the transition assertion means something
-    _, cont_a = pipe.run(pa, st_a, split_bf16(jnp.asarray(blocks[swap_at:])))
+    _, cont_a = pipe.run(pa, st_a, jnp.asarray(blocks[swap_at:]))
     assert not np.array_equal(np.asarray(gold_b), np.asarray(cont_a))
 
-    srv = RingServer(pipe, pa, slots=8, chunk=2, max_inflight=2, seed=5,
-                     mega=mega)
+    srv = RingServer(pipe, pa, slots=8, chunk=2, max_inflight=2, seed=5)
 
     def src():
         for i, b in enumerate(blocks):
@@ -275,8 +215,8 @@ def test_swap_params_mid_stream(rng, mega):
                                   np.asarray(gold_b))
     np.testing.assert_array_equal(np.asarray(st_b.key),
                                   np.asarray(srv.state.key))
-    np.testing.assert_array_equal(np.asarray(st_b.conv_tail[0]),
-                                  np.asarray(srv.state.conv_tail[0]))
+    np.testing.assert_array_equal(np.asarray(st_b.conv_tail),
+                                  np.asarray(srv.state.conv_tail))
 
 
 def test_swap_params_mid_chunk_applies_at_chunk_start(rng):
@@ -287,8 +227,6 @@ def test_swap_params_mid_chunk_applies_at_chunk_start(rng):
 
     import jax.numpy as jnp
 
-    from afp_tpu.ops.pallas.fir_td import split_bf16
-
     cfg = make_cfg()
     pipe = Pipeline(cfg)
     pa = pipe.device_params(PipelineParams.design(pipe.cfg))
@@ -298,8 +236,8 @@ def test_swap_params_mid_chunk_applies_at_chunk_start(rng):
     blocks = (rng.normal(size=(n, cfg.batch, cfg.blocksize)) * 0.4
               ).astype(np.float32)
     st_a, gold_a = pipe.run(pa, pipe.init_state(seed=5),
-                            split_bf16(jnp.asarray(blocks[:4])))
-    _, gold_b = pipe.run(pb, st_a, split_bf16(jnp.asarray(blocks[4:])))
+                            jnp.asarray(blocks[:4]))
+    _, gold_b = pipe.run(pb, st_a, jnp.asarray(blocks[4:]))
 
     srv = RingServer(pipe, pa, slots=8, chunk=2, max_inflight=2, seed=5)
 
@@ -354,19 +292,17 @@ def test_set_eq_gains_mid_stream(rng):
 
 
 def test_retune_agc_chain_mid_stream(rng, monkeypatch):
-    """`retune` on the fused-AGC serving chain: the new AGC policy (and
+    """`retune` on the AGC serving chain: the new AGC policy (and
     filter design) is designed off-thread and takes effect at the next
     chunk — bit-identical to a params-B continuation run."""
     import dataclasses
 
     import jax.numpy as jnp
 
-    from afp_tpu.ops.agc import AGCParams
-
-    monkeypatch.setenv("AFP_AGC_FUSED_FORCE", "1")
+    from afp.ops.agc import AGCParams
     cfg = make_cfg(
         ingest="f32", blocksize=256, upsample_factor=2, numtaps=33,
-        batch=1024, eq_enabled=True, agc_enabled=True, agc_mode="exact",
+        batch=16, eq_enabled=True, agc_enabled=True, agc_mode="exact",
         agc_window_size=64, agc_carry=True, dither_kind="tpdf",
         output_clip=0.99,
     )
@@ -418,31 +354,29 @@ def test_swap_params_validation():
     with pytest.raises(ValueError, match="shape"):
         srv.swap_params(bad)
 
-    # structural change: banked params into a shared-band server
-    from afp_tpu.engine.batch import with_per_stream_filters
+    # a per-stream filter bank turns H_main into a [B, F] bank: a shape
+    # change, rejected
+    from afp.engine.batch import with_per_stream_filters
 
-    f32pipe = Pipeline(make_cfg(ingest="f32"))
-    fsrv = RingServer(f32pipe, slots=8, chunk=2)
-    banked = with_per_stream_filters(f32pipe, [{}] * f32pipe.batch)
-    # rejected on the first differing field (H_main goes per-stream before
-    # the casc_bank presence check is even reached) — either message names
-    # the no-recompile contract
-    with pytest.raises(ValueError, match="shape|presence"):
+    fsrv = RingServer(Pipeline(make_cfg()), slots=8, chunk=2)
+    banked = with_per_stream_filters(fsrv.pipe, [{}] * fsrv.pipe.batch)
+    with pytest.raises(ValueError, match="shape"):
         fsrv.swap_params(banked)
+    # structural change: the fft strategy's params carry no cascade taps
+    fft = Pipeline(make_cfg(conv_strategy="fft"))
     with pytest.raises(ValueError, match="presence"):
-        fsrv.swap_params(fsrv.params._replace(
-            casc_bank=banked.casc_bank, casc_assign=banked.casc_assign))
+        fsrv.swap_params(fft.device_params(PipelineParams.design(fft.cfg)))
 
 
 # ---------------------------------------------------------------- spectrum tap
 
 
 def test_ring_server_spectrum_tap(rng):
-    """`spectrum_every=N` (VERDICT r4 #5): every Nth drained block lands a
+    """`spectrum_every=N`: every Nth drained block lands a
     host-FFT dB spectrum in the server's depth-50 ring (newest-last) and
     the peak readout — while outputs stay bit-identical to an untapped
     server (the tap rides the drain, not the device)."""
-    from afp_tpu.ops.spectrum import spectrum_db_np
+    from afp.ops.spectrum import spectrum_db_np
 
     cfg = make_cfg(ingest="f32", dither_kind="off")
     pipe = Pipeline(cfg)
@@ -475,8 +409,8 @@ def test_controller_ring_stream_waterfall(rng, tmp_path):
     live spectrum overlay + waterfall render from the serving drain."""
     import time
 
-    from afp_tpu.ui.controller import EqualizerController
-    from afp_tpu.engine import StreamEngine
+    from afp.ui.controller import EqualizerController
+    from afp.engine import StreamEngine
 
     cfg = make_cfg(ingest="f32", dither_kind="off")
     pipe = Pipeline(cfg)

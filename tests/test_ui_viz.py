@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from afp_tpu.engine import StreamConfig, StreamEngine
-from afp_tpu.ops.spectrum import (
+from afp.engine import StreamConfig, StreamEngine
+from afp.ops.spectrum import (
     WATERFALL_DEPTH,
     spectrum_db,
     spectrum_freqs,
@@ -11,7 +11,7 @@ from afp_tpu.ops.spectrum import (
     waterfall_init,
     waterfall_push,
 )
-from afp_tpu.ui import EqualizerController
+from afp.ui import EqualizerController
 
 
 @pytest.fixture
@@ -101,7 +101,7 @@ def test_spectrum_ops(rng):
 
 
 def test_waterfall_renders(ctl, tmp_path, rng):
-    from afp_tpu.viz import plot_waterfall
+    from afp.viz import plot_waterfall
 
     ring = rng.normal(size=(WATERFALL_DEPTH, 257)).astype(np.float32) * 10 - 60
     freqs = spectrum_freqs(512, 44100)
@@ -114,7 +114,7 @@ def test_waterfall_renders(ctl, tmp_path, rng):
 
 
 def test_device_listing():
-    from afp_tpu.runtime import format_devices, list_devices
+    from afp.runtime import format_devices, list_devices
 
     devs = list_devices()
     assert len(devs) >= 1
@@ -123,7 +123,7 @@ def test_device_listing():
 
 
 def test_wav_roundtrip(tmp_path, rng):
-    from afp_tpu.utils import read_wav, write_wav
+    from afp.utils import read_wav, write_wav
 
     x = (0.5 * rng.standard_normal((2, 4410))).astype(np.float32).clip(-1, 1)
     for width, tol in [(2, 1e-4), (3, 1e-6), (4, 1e-7)]:
@@ -135,13 +135,13 @@ def test_wav_roundtrip(tmp_path, rng):
 
 
 def test_gui_import_gated():
-    from afp_tpu.ui.gui import gui_available
+    from afp.ui.gui import gui_available
 
     assert isinstance(gui_available(), bool)  # no display in CI → False is fine
 
 
 def test_wav_ieee_float_roundtrip(tmp_path, rng):
-    from afp_tpu.utils import read_wav, write_wav
+    from afp.utils import read_wav, write_wav
 
     x = (0.5 * rng.standard_normal((2, 4410))).astype(np.float32)
     p = str(tmp_path / "f32.wav")
@@ -152,7 +152,7 @@ def test_wav_ieee_float_roundtrip(tmp_path, rng):
 
 
 def test_spectrum_overlay_lands_in_figure(ctl, tmp_path):
-    """VERDICT r1 #3: the captured output spectrum must actually be rendered
+    """the captured output spectrum must actually be rendered
     on the response plot, with the peak annotated."""
     ctl.show_spectrum = True
     t = np.arange(512) / 44100
@@ -196,8 +196,8 @@ def test_controller_waterfall_requires_history(ctl):
 def test_engine_scan_carried_waterfall(rng):
     """waterfall_enabled=True: the depth-50 spectrum ring rides the device
     scan (no host contact per block) and shows the tone."""
-    from afp_tpu.engine import StreamConfig, StreamEngine
-    from afp_tpu.ops.spectrum import spectrum_freqs
+    from afp.engine import StreamConfig, StreamEngine
+    from afp.ops.spectrum import spectrum_freqs
 
     eng = StreamEngine(StreamConfig(
         samplerate=44100, blocksize=512, upsample_factor=1, numtaps=65,

@@ -3,8 +3,8 @@ import numpy as np
 import pytest
 import scipy.signal as sps
 
-from afp_tpu.design import windows as W
-from afp_tpu.design.api import get_window as ref_get_window
+from afp.design import windows as W
+from afp.design.api import get_window as ref_get_window
 
 NAMES = [
     "boxcar", "triang", "blackman", "hamming", "hann", "bartlett",
